@@ -19,18 +19,31 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
   serve    from_decentralized -> save/load -> compress(500), then the batched
            engine answers 3/17/64/128/200-row requests on both models; each
            request is held against the plain projection on the card;
-  breakdown  setup, ADMM and central kPCA once more, warm: wall time, then
-           device time, idle share and top kernels from a torch.profiler
-           trace;
+  baselines  the paper's Fig. 4 and Fig. 5 baselines on the same data:
+           local_kpca (one kPCA per node) and neighborhood_kpca (one per
+           500-sample neighbourhood), mean similarity to central kPCA beside
+           the ADMM's at iteration 30; the paper's ordering ADMM@30 >
+           neighbourhood > local is checked;
+  topk     run_admm_topk(k=2, n_iters=30) at the same size: the first
+           component's similarity, the 2-D subspace's alignment inside the
+           central top-3, the second component's similarity to central
+           component 1 (tests/test_deflation.py's limits); then the C = 2
+           model and its 500-landmark compression served through the engine,
+           each request held against the plain projection;
+  breakdown  setup, ADMM, central kPCA, baselines and top-k once more, warm:
+           wall time, then device time, device calls, idle share and top
+           kernels from a torch.profiler trace;
   serve_stream  sustained serving on both models: 4096 requests of 1-256
            rows (log-uniform) in drains of 32, timed and then traced over
            the whole stream: queries/s, drain latency p50/p99, device time,
            idle share; every score held against the plain projection.
 
-Every kernel's launch count is zeroed just before the fit and read after
-the serve phase (the breakdown and stream phases come after and count
-nowhere); a kernel the main path never launched fails the run. The
-last lines are the kernels summary object, the nvidia-smi line, and
+Each path (fit and serve; baselines; top-k) is driven with every kernel's
+launch count zeroed just before it and read just after; a kernel the path
+must run and never launched fails the run (the kernels, breakdown and
+stream phases count nowhere). The summary's ``launches`` is the fit and
+serve path's. The last lines are the kernels summary object, the
+nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. A failed check is reported and the run
 goes on, so one run shows every phase; it then exits non-zero before the
 summary. An exception (a failed build, a launch error) ends the run at
@@ -203,10 +216,85 @@ def project_record(spec, model, xq):
         bound_ms=b_ms, bound_by=b_by)
 
 
+def center_record(k, label):
+    """The centering kernel on k (..., n, m) at its own strides, with the
+    row / column / total means the wrapper forms (``op_ms`` times the
+    wrapper: the three means and the launch)."""
+    import torch
+    from repro_torch.kernels import center_op, center_reference, center_tiles
+    from repro_torch.kernels.centering.ops import _two_batch_dims
+    view = _two_batch_dims(k)
+    means = (torch.mean(view, dim=-1).contiguous(),
+             torch.mean(view, dim=-2).contiguous(),
+             torch.mean(view, dim=(-2, -1)).contiguous())
+
+    def run():
+        return center_tiles(view, *means)
+
+    got = run().reshape(k.shape)
+    want = center_reference(k)
+    torch.cuda.synchronize()
+    z1, z2, n, m = view.shape
+    z = z1 * z2
+    b_ms, b_by = bound(flops=3 * z * n * m,
+                       nbytes=4 * (2 * z * n * m + z * (n + m + 1)))
+    return dict(
+        shape=label, contiguous=k.is_contiguous(), **errors(got, want),
+        ms=event_ms(torch, run, 20),
+        device_ms=device_ms(torch, run, ("center_kernel",)),
+        op_ms=event_ms(torch, lambda: center_op(k), 20),
+        plain_ms=event_ms(torch, lambda: center_reference(k), 20),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def admm_record(setup, label):
+    """The fused local update on the operands the solver hands it at
+    iteration 6 of the fit (the eigenvectors, node Grams and inverse
+    denominators of the setup, the live duals and z projections of five
+    iterations, the schedule's rho)."""
+    import torch
+    from repro_torch.core import dense_parts, init_state, initial_alpha
+    from repro_torch.core.rho import RhoSchedule
+    from repro_torch.core.solver import (admm_step, inverse_denominators,
+                                         slot_rho)
+    from repro_torch.kernels import (admm_local_update,
+                                     admm_local_update_reference)
+    ops, comm = dense_parts(setup)
+    state = init_state(initial_alpha(setup), setup.n_slots)
+    for t in range(5):
+        state, _ = admm_step(ops, comm, state,
+                             slot_rho(ops.mask, 100.0, RhoSchedule().at(t)))
+    j, n, s = ops.k.shape[0], ops.k.shape[1], ops.mask.shape[1]
+    rho = slot_rho(ops.mask, 100.0, RhoSchedule().at(5))
+    inv = inverse_denominators(ops.lam, torch.sum(rho, dim=1))
+    ins = (ops.vec, inv[..., None].contiguous(), ops.k,
+           state.b * ops.mask[:, None, :], state.g,
+           rho[:, None, :].contiguous())
+
+    def run():
+        return admm_local_update(*ins)
+
+    got, want = run(), admm_local_update_reference(*ins)
+    torch.cuda.synchronize()
+    errs = [errors(a, w) for a, w in zip(got, want)]
+    b_ms, b_by = bound(flops=j * (6 * n * n + n + 5 * n * s),
+                       nbytes=4 * (2 * j * n * n + 3 * j * n + 3 * j * n * s
+                                   + j * s))
+    return dict(
+        shape=label, max_abs_err=max(e["max_abs_err"] for e in errs),
+        max_scaled_err=max(e["max_scaled_err"] for e in errs),
+        ms=event_ms(torch, run, 100),
+        device_ms=device_ms(torch, run, ("admm_step_kernel",)),
+        plain_ms=event_ms(torch, lambda: admm_local_update_reference(*ins),
+                          100),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(dev, spec, nodes, pooled, gamma):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
-    from repro_torch.core import oos, ring
+    from repro_torch.core import build_setup, oos, ring
+    from repro_torch.core.kernels_math import gram
     from repro_torch.data import kpca_dataset
     from repro_torch.kernels import (project_partial_op,
                                      project_partial_reference)
@@ -246,6 +334,25 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     torch.cuda.synchronize()
     records["partial"] = [dict(shape="B128xL2000xM784xC1",
                                **errors(got, want))]
+
+    # centering on real Grams: central kPCA's (and the similarity metric's)
+    # pooled 2000 x 2000, the setup's 20 x 500 x 500 slot Grams as one
+    # contiguous batch and as the strided (J, S, S, N, N) block view that
+    # center="block" centres, local_kpca's 20 x 100 x 100 batch and one
+    # neighbourhood's 500 x 500
+    k_slots = gram(spec, slots.contiguous(), gamma=g)
+    records["center"] = [
+        center_record(gram(spec, pooled_t, gamma=g), "2000x2000"),
+        center_record(k_slots, "20x500x500"),
+        center_record(k_slots.reshape(20, 5, 100, 5, 100)
+                      .permute(0, 1, 3, 2, 4), "20x5x5x100x100 strided"),
+        center_record(gram(spec, torch.as_tensor(nodes, device=dev),
+                           gamma=g), "20x100x100"),
+        center_record(k_slots[0], "500x500")]
+    # the fused update on the fit's own setup
+    setup = build_setup(nodes, ring(20, hops=2), spec, center="global",
+                        gamma=g, device=dev)
+    records["admm_step"] = [admm_record(setup, "J20xN100xS5")]
     emit("kernels", tolerance=TOLERANCE, records=records)
     for name, recs in records.items():
         worst = max(r["max_scaled_err"] for r in recs)
@@ -255,18 +362,158 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
 
 
 def mean_similarity(alphas, x_nodes, pooled, alpha_gt, spec, gamma):
+    """Mean and least similarity to central kPCA over the nodes (alphas[j]
+    a direction on the data x_nodes[j])."""
     from repro_torch.core import similarity
     sims = [float(similarity(alphas[j], x_nodes[j], alpha_gt, pooled, spec,
                              gamma=gamma))
-            for j in range(x_nodes.shape[0])]
+            for j in range(len(x_nodes))]
     return sum(sims) / len(sims), min(sims)
 
 
-def timed_and_traced(torch, fn):
+def launch_counters() -> dict:
+    from repro_torch.kernels import (admm_local_update, center_tiles,
+                                     gram_tiles, project_tiles)
+    return {"gram": gram_tiles, "project": project_tiles,
+            "center": center_tiles, "admm_step": admm_local_update}
+
+
+def zero_launches() -> None:
+    import torch
+    torch.cuda.synchronize()
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches(path: str, needed) -> dict:
+    """Every kernel's launches since ``zero_launches``; a kernel in
+    ``needed`` that never launched on this path fails the run."""
+    counts = {name: w.launches for name, w in launch_counters().items()}
+    missing = [name for name in needed if counts[name] == 0]
+    check(not missing, f"{path}: kernel(s) {missing} never launched: "
+                       f"{counts}")
+    return counts
+
+
+def serve_requests(dev, models, requests, label) -> dict:
+    """Every request through the batched engine on each model, each held
+    against the plain projection on the card."""
+    import torch
+    from repro_torch.kernels import project_reference
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig
+    out = {}
+    for name, mdl in models:
+        engine = KpcaEngine(mdl, KpcaServeConfig(max_batch=128,
+                                                 min_bucket=8), device=dev)
+        t0 = time.perf_counter()
+        outs = engine.project_many(requests)
+        wall = time.perf_counter() - t0
+        errs = []
+        for req, got in zip(requests, outs):
+            want = project_reference(
+                mdl.spec, torch.as_tensor(req, device=dev), mdl.x_support,
+                mdl.coefs, mdl.row_mean_coef, mdl.bias, mdl.gamma)
+            check(got.shape == (req.shape[0], mdl.n_components),
+                  f"{label} ({name}): bad shape {got.shape}")
+            errs.append(float(abs(got - want.cpu().numpy()).max()))
+        rows = sum(r.shape[0] for r in requests)
+        out[name] = dict(support=mdl.n_support,
+                         components=mdl.n_components, max_abs_err=max(errs),
+                         queries=rows, wall_s=wall,
+                         queries_per_s_wall=rows / wall,
+                         queries_per_s_device=engine.stats.queries_per_s,
+                         padded_rows=engine.stats.n_padded)
+        check(max(errs) <= TOL, f"{label} engine ({name}) disagrees with the"
+                                f" plain projection: {max(errs):.3g} > {TOL}")
+    return out
+
+
+def phase_baselines(dev, spec, setup, alpha_gt, admm30) -> dict:
+    """Fig. 4 and Fig. 5 baselines on the fit's data and bandwidth, beside
+    the ADMM's similarity at iteration 30."""
+    import torch
+    from repro_torch.core import local_kpca, neighborhood_kpca, ring
+    x_nodes = setup.x
+    pooled = x_nodes.reshape(-1, x_nodes.shape[-1])
+    zero_launches()
+    t0 = time.perf_counter()
+    loc = local_kpca(x_nodes, spec, gamma=setup.gamma, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nb = neighborhood_kpca(x_nodes, ring(20, hops=2), spec,
+                           gamma=setup.gamma, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    local = mean_similarity(loc[..., 0], x_nodes, pooled, alpha_gt, spec,
+                            setup.gamma)
+    nei = mean_similarity([a[:, 0] for a, _ in nb], [xc for _, xc in nb],
+                          pooled, alpha_gt, spec, setup.gamma)
+    counts = read_launches("baselines", ("gram", "center"))
+    emit("baselines", similarity_mean=dict(
+        admm_30=admm30[0], neighborhood=nei[0], local=local[0]),
+         similarity_min=dict(admm_30=admm30[1], neighborhood=nei[1],
+                             local=local[1]),
+         local_s=t1 - t0, neighborhood_s=t2 - t1, launches=counts)
+    check(admm30[0] > nei[0] > local[0],
+          f"baseline ordering ADMM@30 > neighbourhood > local fails: "
+          f"{admm30[0]:.5f}, {nei[0]:.5f}, {local[0]:.5f}")
+    return counts
+
+
+def phase_topk(dev, spec, setup, nodes, requests) -> dict:
+    """Top-2 by deflation at the fit's size, held to tests/test_deflation.py's
+    limits, then packaged as a C = 2 model and served."""
+    import torch
+    from repro_torch.core import (central_kpca, oos, run_admm_topk,
+                                  subspace_alignment)
+    x_nodes = setup.x
+    pooled = x_nodes.reshape(-1, x_nodes.shape[-1])
+    zero_launches()
+    t0 = time.perf_counter()
+    alphas = run_admm_topk(setup, k=2, n_iters=30)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gt, lam3, _ = central_kpca(pooled, spec, 3, gamma=setup.gamma,
+                               device=dev)
+    first = mean_similarity(alphas[0], x_nodes, pooled, gt[:, 0], spec,
+                            setup.gamma)
+    second = mean_similarity(alphas[1], x_nodes, pooled, gt[:, 0], spec,
+                             setup.gamma)
+    align = [float(subspace_alignment(
+        torch.stack([alphas[0][j], alphas[1][j]], dim=1), x_nodes[j],
+        gt[:, :3], pooled, spec, gamma=setup.gamma))
+        for j in range(x_nodes.shape[0])]
+    model = oos.from_decentralized(nodes, alphas, spec, gamma=setup.gamma,
+                                   device=dev)
+    compressed, rel_err = oos.compress(model, 500, seed=0)
+    served = serve_requests(dev, (("full", model),
+                                  ("compressed", compressed)), requests,
+                            "topk")
+    counts = read_launches("topk", ("gram", "project", "center",
+                                    "admm_step"))
+    emit("topk", k=2, iterations=30, topk_s=t1 - t0,
+         first_similarity_mean=first[0], first_similarity_min=first[1],
+         alignment_mean=sum(align) / len(align), alignment_min=min(align),
+         second_vs_first_mean=second[0],
+         central_lambda=[float(v) for v in lam3],
+         compress_rel_err=[float(v) for v in rel_err], models=served,
+         launches=counts)
+    check(first[0] >= SIM30_MIN, f"top-k first component similarity "
+                                 f"{first[0]:.4f} < {SIM30_MIN}")
+    check(sum(align) / len(align) > 0.85,
+          f"top-k alignment {sum(align) / len(align):.4f} <= 0.85")
+    check(second[0] < 0.5, f"top-k second component similarity to central "
+                           f"component 1 {second[0]:.4f} >= 0.5")
+    return counts
+
+
+def timed_and_traced(torch, fn, calls_by_kernel: bool = False):
     """One warm run of ``fn``, one on the host clock, then one under
     ``torch.profiler``. Returns (the timed run's result, its wall seconds,
-    and the traced run's device time, the card's idle share of the untraced
-    wall time, and the five kernels that took the most device time)."""
+    and the traced run's device time, its count of device calls — kernel
+    launches and copies —, the card's idle share of the untraced wall time,
+    and the five kernels that took the most device time; with
+    ``calls_by_kernel``, every device kernel's and copy's call count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -284,16 +531,23 @@ def timed_and_traced(torch, fn):
                       if e.device_type == DeviceType.CUDA
                       and e.device_time_total > 0), reverse=True)
     busy = sum(k[0] for k in kernels) / 1e6
-    return out, wall, dict(
+    trace = dict(
         device_s=busy if kernels else None,
+        device_calls=sum(k[2] for k in kernels),
         idle_share=1.0 - busy / wall if kernels else None,
         top=[dict(kernel=key[:70], calls=n, ms=us / 1e3)
              for us, key, n in kernels[:5]])
+    if calls_by_kernel:
+        trace["calls_by_kernel"] = [
+            dict(kernel=key[:90], calls=n)
+            for n, key in sorted(((n, key) for _, key, n in kernels),
+                                 reverse=True)]
+    return out, wall, trace
 
 
-def phase_breakdown(torch, fn) -> dict:
+def phase_breakdown(torch, fn, calls_by_kernel: bool = False) -> dict:
     """A phase's warm wall time, device time, idle share and top kernels."""
-    _, wall, trace = timed_and_traced(torch, fn)
+    _, wall, trace = timed_and_traced(torch, fn, calls_by_kernel)
     return dict(wall_s=wall, **trace)
 
 
@@ -416,11 +670,10 @@ def main() -> int:
         ptxas=usage)
 
     from repro_torch.core import (KernelSpec, build_setup, central_kpca,
-                                  oos, ring, run_admm)
+                                  local_kpca, neighborhood_kpca, oos, ring,
+                                  run_admm, run_admm_topk)
     from repro_torch.core.kernels_math import resolve_gamma
     from repro_torch.data import kpca_dataset, node_dataset
-    from repro_torch.kernels import gram_tiles, project_reference, project_tiles
-    from repro_torch.serve import KpcaEngine, KpcaServeConfig
     spec = KernelSpec(kind="rbf")
     nodes, pooled = node_dataset(20, 100, m=784, seed=0)
 
@@ -429,9 +682,7 @@ def main() -> int:
     records = phase_kernels(dev, spec, nodes, pooled, gamma)
 
     # -- main path: fit, then serve (launch counts zeroed just before) -------
-    gram_tiles.launches = 0
-    project_tiles.launches = 0
-    torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     setup = build_setup(nodes, ring(20, hops=2), spec, center="global",
                         device=dev)
@@ -489,45 +740,38 @@ def main() -> int:
     compressed, rel_err = oos.compress(loaded, 500, seed=0)
     sizes = (3, 17, 64, 128, 200)
     requests = [kpca_dataset(q, m=784, seed=100 + q) for q in sizes]
-    serve = {}
-    for name, mdl in (("full", loaded), ("compressed", compressed)):
-        engine = KpcaEngine(mdl, KpcaServeConfig(max_batch=128,
-                                                 min_bucket=8), device=dev)
-        t0 = time.perf_counter()
-        outs = engine.project_many(requests)
-        wall = time.perf_counter() - t0
-        errs = []
-        for req, out in zip(requests, outs):
-            want = project_reference(
-                spec, torch.as_tensor(req, device=dev), mdl.x_support,
-                mdl.coefs, mdl.row_mean_coef, mdl.bias, mdl.gamma)
-            check(out.shape == (req.shape[0], 1), f"bad shape {out.shape}")
-            errs.append(float(abs(out - want.cpu().numpy()).max()))
-        serve[name] = dict(support=mdl.n_support, max_abs_err=max(errs),
-                           queries=sum(sizes), wall_s=wall,
-                           queries_per_s_wall=sum(sizes) / wall,
-                           queries_per_s_device=engine.stats.queries_per_s,
-                           padded_rows=engine.stats.n_padded)
-        check(max(errs) <= TOL, f"engine ({name}) disagrees with the plain "
-                                f"projection: {max(errs):.3g} > {TOL}")
-    launches = {"gram": gram_tiles.launches,
-                "project": project_tiles.launches}
+    serve = serve_requests(dev, (("full", loaded),
+                                 ("compressed", compressed)), requests,
+                           "serve")
+    launches = read_launches("fit and serve", ("gram", "project", "center",
+                                               "admm_step"))
     emit("serve", requests=list(sizes), models=serve,
-         compress_rel_err=float(rel_err[0]))
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+         compress_rel_err=float(rel_err[0]), launches=launches)
+
+    # -- the paper's baselines, then top-k (each path its own counts) -------
+    path_launches = {
+        "fit_and_serve": launches,
+        "baselines": phase_baselines(dev, spec, setup, alpha_gt[:, 0],
+                                     sims[30]),
+        "topk": phase_topk(dev, spec, setup, nodes, requests)}
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")
 
     # -- where the time goes: each phase once more, warm, timed and then
     # traced (after the launch counts were read, so none of this counts) -----
-    emit("breakdown", **{name: phase_breakdown(torch, fn) for name, fn in {
+    emit("breakdown", **{name: phase_breakdown(torch, fn, name == "admm")
+                         for name, fn in {
         "setup": lambda: build_setup(nodes, ring(20, hops=2), spec,
                                      center="global", device=dev),
         "admm": lambda: run_admm(setup, n_iters=30),
         "central": lambda: central_kpca(pooled, spec, 1, gamma=setup.gamma,
                                         device=dev),
+        "baselines": lambda: (
+            local_kpca(setup.x, spec, gamma=setup.gamma, device=dev),
+            neighborhood_kpca(setup.x, ring(20, hops=2), spec,
+                              gamma=setup.gamma, device=dev)),
+        "topk": lambda: run_admm_topk(setup, k=2, n_iters=30),
     }.items()})
     phase_serve_stream(dev, (("full", loaded), ("compressed", compressed)))
 
@@ -540,11 +784,16 @@ def main() -> int:
             ("gram", "src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/gram/gram.py:70", 0),
             ("project", "src/repro_torch/kernels/csrc/project.cu",
-             "src/repro/kernels/project/project.py:92", 3)):
+             "src/repro/kernels/project/project.py:92", 3),
+            ("admm_step", "src/repro_torch/kernels/csrc/admm_step.cu",
+             "src/repro/kernels/admm_step/admm_step.py:50", 0),
+            ("center", "src/repro_torch/kernels/csrc/center.cu",
+             "src/repro/kernels/centering/centering.py:29", 0)):
         r = records[name][idx]
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
+            launches_by_path={p: c[name] for p, c in path_launches.items()},
             max_abs_err=max(x["max_abs_err"] for x in records[name]),
             tolerance=TOL,
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],

@@ -21,7 +21,8 @@ from ..device import DeviceLike, as_f32, resolve_device
 from .kernels_math import (KernelSpec, center_gram, gram, psd_jitter_eigh,
                            resolve_gamma)
 from .rho import RhoSchedule, auto_rho
-from .solver import dense_parts, init_state, run_steps, slot_rho
+from .solver import (admm_step, dense_parts, init_state, lagrangian,
+                     run_steps, slot_rho)
 from .topology import Graph
 
 
@@ -225,12 +226,40 @@ def run_admm(setup: DkpcaSetup, n_iters: int = 30, rho1: float = 100.0,
                        rho_hist=torch.tensor(rho2s, dtype=torch.float32))
 
 
+def admm_iteration(setup: DkpcaSetup, alpha: torch.Tensor, b: torch.Tensor,
+                   rho1: float, rho2: float, project: str = "ball"):
+    """One ADMM iteration (eq. 10-13, per-slot-rho generalization) through
+    the shared step body (``repro_torch.core.solver.admm_step``) over the
+    dense transport, on the setup's device.
+
+    alpha: (J, N); b: (J, N, S). Returns (alpha', b', g, znorm2).
+    """
+    ops, comm = dense_parts(setup)
+    state = dataclasses.replace(
+        init_state(as_f32(alpha, setup.device), setup.n_slots),
+        b=as_f32(b, setup.device))
+    new, _ = admm_step(ops, comm, state, _slot_rho(setup, rho1, rho2),
+                       project)
+    return new.alpha, new.b, new.g, new.znorm2
+
+
+def augmented_lagrangian(setup: DkpcaSetup, alpha: torch.Tensor,
+                         b: torch.Tensor, g: torch.Tensor, rho1: float,
+                         rho2: float) -> torch.Tensor:
+    """Dual-space evaluation of eq. (8):
+    L = sum_j [ -a^T K^2 a + sum_s B_s^T C_s + sum_s rho_s/2 C_s^T K C_s ],
+    C_s = alpha - K^{-1} G_s (constraint residual coefficients)."""
+    ops, _ = dense_parts(setup)
+    return lagrangian(ops, alpha, b, g, _slot_rho(setup, rho1, rho2))
+
+
 def theorem2_rho(setup: DkpcaSetup, safety: float = 1.05) -> float:
     """Assumption-2-satisfying constant rho for this setup."""
     degrees = torch.sum(setup.mask, dim=1)
     return auto_rho(setup.lam, degrees, safety)
 
 
-__all__ = ["DkpcaResult", "DkpcaSetup", "build_setup", "initial_alpha",
+__all__ = ["DkpcaResult", "DkpcaSetup", "admm_iteration",
+           "augmented_lagrangian", "build_setup", "initial_alpha",
            "kernel_mean_stats", "local_solution_alpha", "run_admm",
            "theorem2_rho"]

@@ -1,10 +1,11 @@
 """Kernel functions and Gram-matrix math for (decentralized) kernel PCA.
 
-The port of ``repro.core.kernels_math``. ``gram`` is the one entry every
-module calls: on a CUDA tensor it launches the hand-written gram kernel
-(``repro_torch.kernels.gram``), on a CPU tensor it runs the plain PyTorch
-version (``gram_reference``). Inputs may carry a leading batch dimension
-(the JAX package's ``vmap`` written out).
+The port of ``repro.core.kernels_math``. ``gram`` and ``center_gram`` are
+the entries every module calls: on a CUDA tensor they launch the
+hand-written gram and centering kernels (``repro_torch.kernels.gram``,
+``repro_torch.kernels.centering``), on a CPU tensor they run the plain
+PyTorch versions. Inputs may carry a leading batch dimension (the JAX
+package's ``vmap`` written out).
 
 The paper (§3.1) requires the kernel to be *normalized*: K(x, x) = 1 for all
 x. RBF satisfies this by construction; linear/polynomial kernels are
@@ -81,14 +82,13 @@ def _self_k(spec: KernelSpec, x: torch.Tensor) -> torch.Tensor:
 
 def center_gram(k: torch.Tensor) -> torch.Tensor:
     """Center a Gram block per the paper's §6.1 formula (batched over any
-    leading dims).
+    leading dims, strided views included): the centering kernel on a CUDA
+    tensor, the plain version on a CPU tensor.
 
     K_c = K - 1_m K / m - K 1_n / n + 1_m K 1_n / (mn), for K in R^{m x n}.
     """
-    col_mean = torch.mean(k, dim=-2, keepdim=True)
-    row_mean = torch.mean(k, dim=-1, keepdim=True)
-    tot_mean = torch.mean(k, dim=(-2, -1), keepdim=True)
-    return k - col_mean - row_mean + tot_mean
+    from ..kernels.centering.ops import center_op   # kernels import this module
+    return center_op(k)
 
 
 def center_gram_global(k_xy: torch.Tensor, k_x_train: torch.Tensor,
@@ -115,9 +115,10 @@ def psd_jitter_eigh(k: torch.Tensor, rel_eps: float = 1e-6):
 
 
 def topk_eigh(kmat: torch.Tensor, k: int = 1):
-    """Top-k eigenpairs of a symmetric matrix, descending."""
+    """Top-k eigenpairs of a symmetric matrix (batched over any leading
+    dims), descending: lam (..., k), v (..., N, k)."""
     lam, v = torch.linalg.eigh(kmat)
-    return torch.flip(lam, (-1,))[:k], torch.flip(v, (-1,))[:, :k]
+    return torch.flip(lam, (-1,))[..., :k], torch.flip(v, (-1,))[..., :k]
 
 
 __all__ = ["KernelSpec", "center_gram", "center_gram_global", "gram",

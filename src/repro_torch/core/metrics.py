@@ -5,7 +5,7 @@ Similarity(w_j, w_gt) = w_j^T w_gt / (||w_j|| ||w_gt||)
 
 computed entirely in the dual. Eigenvector sign is arbitrary, so we report
 |similarity|. Runs on the device of its inputs (Grams through the gram
-kernel on the card).
+kernel and their centering through the centering kernel on the card).
 """
 
 from __future__ import annotations
@@ -44,4 +44,29 @@ def pairwise_direction_similarity(alpha_a, x_a, alpha_b, x_b, spec,
                       gamma=gamma)
 
 
-__all__ = ["pairwise_direction_similarity", "similarity"]
+def subspace_alignment(alphas_j: torch.Tensor, x_j: torch.Tensor,
+                       alphas_gt: torch.Tensor, x_gt: torch.Tensor,
+                       spec: KernelSpec,
+                       gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean principal angle cosine between two component subspaces (used
+    by the beyond-paper top-k deflation). alphas: (N, k). Uncentered
+    Grams, as in the JAX package."""
+    k_cross = gram(spec, x_j, x_gt, gamma=gamma)
+    k_j = gram(spec, x_j, gamma=gamma)
+    k_g = gram(spec, x_gt, gamma=gamma)
+    # Gram-normalize each side, then the SVD of the cross-correlation.
+    aj = _orthonormalize(alphas_j, k_j)
+    ag = _orthonormalize(alphas_gt, k_g)
+    s = torch.linalg.svdvals(aj.T @ k_cross @ ag)
+    return torch.mean(torch.clamp(s, 0.0, 1.0))
+
+
+def _orthonormalize(alpha: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Make columns of phi(X) alpha orthonormal: alpha^T K alpha = I."""
+    lam, v = torch.linalg.eigh(alpha.T @ k @ alpha)
+    lam = torch.clamp(lam, min=1e-12)
+    return alpha @ v / torch.sqrt(lam)[None, :]
+
+
+__all__ = ["pairwise_direction_similarity", "similarity",
+           "subspace_alignment"]

@@ -7,7 +7,9 @@
     generalization, with ``slot_mask`` censoring and hold-when-isolated),
     written against a communicator (``DenseComm``: all J nodes on one
     device, exchange by (src, rsl) indexing). The node axis J is a written-
-    out batch dimension where the JAX package ``vmap``s;
+    out batch dimension where the JAX package ``vmap``s. Its eq. 12-13
+    block is the fused local update (``repro_torch.kernels.admm_step``):
+    one kernel launch for all J nodes on the card;
   * ``run_chunked`` — the resumable driver: a Python loop over iterations
     (the JAX package's jitted ``scan``) that yields the live state every
     ``chunk`` iterations, with residual-based early stopping and
@@ -98,9 +100,12 @@ class DenseComm:
 
 
 def dense_parts(setup) -> tuple:
-    """(SolverOps, DenseComm) for a ``repro_torch.core.admm.DkpcaSetup``."""
-    ops = SolverOps(kcross=setup.kcross, k=setup.k, lam=setup.lam,
-                    vec=setup.vec, mask=setup.mask.to(setup.k.dtype))
+    """(SolverOps, DenseComm) for a ``repro_torch.core.admm.DkpcaSetup``.
+    K and V are made contiguous here, once per run, because the fused
+    update kernel reads them row-major (eigh returns V column-major)."""
+    ops = SolverOps(kcross=setup.kcross, k=setup.k.contiguous(),
+                    lam=setup.lam, vec=setup.vec.contiguous(),
+                    mask=setup.mask.to(setup.k.dtype))
     return ops, DenseComm(setup.src, setup.rsl)
 
 
@@ -117,6 +122,18 @@ def _sym_apply(vec: torch.Tensor, scale: torch.Tensor,
     """V diag(scale) V^T x per node: vec (J, N, N), scale (J, N),
     x (J, N, S)."""
     return vec @ ((vec.transpose(1, 2) @ x) * scale[..., None])
+
+
+def inverse_denominators(lam: torch.Tensor,
+                         rho_sum: torch.Tensor) -> torch.Tensor:
+    """The eq. 12 solve's diag(inv_den) per node: 1 / (rho_sum lam - 2 lam^2)
+    on K_j's eigen-directions. lam (J, N) ascending, rho_sum (J,)."""
+    den = rho_sum[:, None] * lam - 2.0 * lam * lam
+    # drop (don't invert) directions where the alpha-Hessian is not PD —
+    # during rho warm-up large-N kernels can violate Assumption 2 for a
+    # few iterations; clamping would amplify those modes into divergence.
+    return torch.where((lam > 1e-5 * lam[:, -1:]) & (den > 0), 1.0 / den,
+                       torch.zeros_like(den))
 
 
 def admm_step(ops: SolverOps, comm: DenseComm, state: AdmmState,
@@ -174,19 +191,17 @@ def admm_step(ops: SolverOps, comm: DenseComm, state: AdmmState,
     g = comm.exchange(p).transpose(1, 2) * mask[:, None, :]  # (J, N, S)
 
     # ---- alpha-update (eq. 12) + eta-update (eq. 13) ---------------------
+    from ..kernels.admm_step.ops import admm_local_update_op  # kernels import core
     rho_sum = torch.sum(rho_slots, dim=-1)
-    rhs = torch.sum(rho_slots[:, None, :] * g - b * mask[:, None, :], dim=2)
-    lam = ops.lam
-    den = rho_sum[:, None] * lam - 2.0 * lam * lam
-    # drop (don't invert) directions where the alpha-Hessian is not PD —
-    # during rho warm-up large-N kernels can violate Assumption 2 for a
-    # few iterations; clamping would amplify those modes into divergence.
-    inv = torch.where((lam > 1e-5 * lam[:, -1:]) & (den > 0), 1.0 / den,
-                      torch.zeros_like(den))
-    alpha_n = _sym_apply(ops.vec, inv, rhs[..., None])[..., 0]
-    ka = (ops.k @ alpha_n[..., None])[..., 0]                # (J, N)
-    diff = ka[..., None] - g                                 # (J, N, S)
-    b_n = (b + rho_slots[:, None, :] * diff) * mask[:, None, :]
+    inv = inverse_denominators(ops.lam, rho_sum)
+    # The fused update (one kernel launch on the card). With B masked, G
+    # masked and rho zero on invalid slots, its B + rho (ka - G) equals
+    # (B + rho (ka - G)) * mask on every slot, censored ones included.
+    alpha_n, b_n, ka = admm_local_update_op(
+        ops.vec, inv[..., None], ops.k, b * mask[:, None, :], g,
+        (rho_slots * mask)[:, None, :])
+    alpha_n = alpha_n[..., 0]
+    diff = ka - g                                            # (J, N, S)
     res_part = torch.sum(mask[:, None, :] * diff * diff, dim=(1, 2))
     if faulty:
         # A node that heard nobody this iteration has no consensus
@@ -395,7 +410,8 @@ def load_state(ckpt_dir: str, step: Optional[int] = None,
 
 __all__ = [
     "AdmmState", "ChunkResult", "DenseComm", "EveryK", "ResidualImprovement",
-    "SolverOps", "admm_step", "dense_parts", "init_state", "lagrangian",
+    "SolverOps", "admm_step", "dense_parts", "init_state",
+    "inverse_denominators", "lagrangian",
     "load_state", "resolve_rho2", "run_chunked", "run_steps", "save_state",
     "slot_rho",
 ]

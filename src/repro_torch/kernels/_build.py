@@ -47,6 +47,14 @@ SIGNATURES = {
     # scratch, cvec, bvec, out, n_chunks, b, cp1, with_epilogue, inv_l,
     # stream
     "kpca_project_finalize": [_p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
+    # k, row, col, tot, out, z1, z2, n, m, k's strides (s1, s2, sn, sm),
+    # stream
+    "kpca_center": [_p, _p, _p, _p, _p, _i, _i, _i, _i,
+                    _ll, _ll, _ll, _ll, _p],
+    # v, inv, k, b, g, rho, alpha, bout, ka, j, n, s, b strides (j, n, s),
+    # g strides (j, n, s), stream
+    "kpca_admm_step": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                       _ll, _ll, _ll, _ll, _ll, _ll, _p],
 }
 
 

@@ -7,6 +7,12 @@ the other.
 Tolerances: 1e-5 where one fp32 formula is evaluated on both sides; 1e-4
 (the reference's own admm_step gate is 2e-4) on ADMM trajectories, where
 the two eigensolvers' rounding feeds ten iterations of the same algebra.
+
+Run as a script (``PYTHONPATH=src python tests/test_torch_core.py``) it
+prints the paper's experiment path at its size (J=20 nodes x N=100 x M=784,
+ring(20, hops=2)) in both packages on the CPU: mean similarity to central
+kPCA of ADMM@30, the Fig. 4 local and Fig. 5 neighbourhood baselines, and
+the top-2 deflation checks.
 """
 
 import dataclasses
@@ -19,6 +25,8 @@ import jax.numpy as jnp
 
 from repro.core import admm as j_admm
 from repro.core import central as j_central
+from repro.core import deflation as j_deflation
+from repro.core import local as j_local
 from repro.core import metrics as j_metrics
 from repro.core import oos as j_oos
 from repro.core import solver as j_solver
@@ -26,10 +34,13 @@ from repro.core import topology as j_topology
 from repro.core.kernels_math import KernelSpec as JKernelSpec
 from repro.core.kernels_math import resolve_gamma as j_resolve_gamma
 from repro.data import node_dataset as j_node_dataset
-from repro_torch.core import (KernelSpec, RhoSchedule, admm_step,
-                              build_setup, central_kpca, dense_parts,
-                              init_state, oos, resolve_gamma, ring, run_admm,
-                              run_chunked, similarity, theorem2_rho)
+from repro_torch.core import (KernelSpec, RhoSchedule, admm_iteration,
+                              admm_step, augmented_lagrangian, build_setup,
+                              central_kpca, dense_parts, init_state,
+                              local_kpca, neighborhood_kpca, oos,
+                              resolve_gamma, ring, run_admm, run_admm_topk,
+                              run_chunked, similarity, subspace_alignment,
+                              theorem2_rho, topk_eigh)
 from repro_torch.core import admm as t_admm
 from repro_torch.core import solver as t_solver
 from repro_torch.core.convert import setup_from_numpy
@@ -357,3 +368,193 @@ def test_convert_carries_jax_leaves(data, setups):
                              for f in dataclasses.fields(st_j)}, device=CPU)
     assert st_t.t == 2
     np.testing.assert_array_equal(_np(st_t.b), np.asarray(st_j.b))
+
+
+@pytest.mark.parametrize("project", ["ball", "sphere"])
+def test_admm_iteration_matches_jax(setups, project):
+    s_t, s_j, alpha0 = _shared_inputs(setups)
+    b0 = np.random.default_rng(4).normal(
+        size=alpha0.shape + (s_j.n_slots,)).astype(np.float32)
+    want = j_admm.admm_iteration(s_j, jnp.asarray(alpha0), jnp.asarray(b0),
+                                 100.0, 10.0, project)
+    got = admm_iteration(s_t, torch.as_tensor(alpha0), torch.as_tensor(b0),
+                         100.0, 10.0, project)
+    for name, g_t, w_j in zip(("alpha", "b", "g", "znorm2"), got, want):
+        np.testing.assert_allclose(_np(g_t), np.asarray(w_j), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
+def test_augmented_lagrangian_matches_jax(setups):
+    s_t, s_j, alpha0 = _shared_inputs(setups)
+    rng = np.random.default_rng(6)
+    b0, g0 = (rng.normal(size=alpha0.shape + (s_j.n_slots,))
+              .astype(np.float32) for _ in range(2))
+    want = float(j_admm.augmented_lagrangian(
+        s_j, jnp.asarray(alpha0), jnp.asarray(b0), jnp.asarray(g0), 100.0,
+        10.0))
+    got = float(augmented_lagrangian(
+        s_t, torch.as_tensor(alpha0), torch.as_tensor(b0),
+        torch.as_tensor(g0), 100.0, 10.0))
+    assert got == pytest.approx(want, rel=1e-4)
+
+
+def test_topk_eigh_batched_and_2d():
+    from repro.core.kernels_math import topk_eigh as j_topk_eigh
+    a = np.random.default_rng(8).normal(size=(3, 7, 7)).astype(np.float32)
+    sym = a + a.swapaxes(1, 2)
+    lam_b, vec_b = topk_eigh(torch.as_tensor(sym), 2)
+    assert lam_b.shape == (3, 2) and vec_b.shape == (3, 7, 2)
+    for i in range(3):
+        lam, vec = topk_eigh(torch.as_tensor(sym[i]), 2)
+        torch.testing.assert_close(lam_b[i], lam, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(vec_b[i].abs(), vec.abs(), rtol=1e-5,
+                                   atol=1e-5)
+        lam_j, vec_j = j_topk_eigh(jnp.asarray(sym[i]), 2)
+        np.testing.assert_allclose(_np(lam), np.asarray(lam_j), rtol=1e-5)
+        np.testing.assert_allclose(np.abs(_np(vec)), np.abs(np.asarray(vec_j)),
+                                   atol=1e-4)
+
+
+def _assert_close_up_to_sign(got, want, atol):
+    """Columns (last axis) of ``got`` against ``want``, each column's sign
+    taken from its largest entry (eigenvector sign is arbitrary)."""
+    got, want = _np(got), np.asarray(want)
+    flat_g = got.reshape(-1, got.shape[-2], got.shape[-1])
+    flat_w = want.reshape(flat_g.shape)
+    for g_m, w_m in zip(flat_g, flat_w):
+        for c in range(g_m.shape[1]):
+            i = int(np.argmax(np.abs(w_m[:, c])))
+            sign = np.sign(g_m[i, c]) * np.sign(w_m[i, c])
+            np.testing.assert_allclose(sign * g_m[:, c], w_m[:, c], atol=atol)
+
+
+@pytest.mark.parametrize("gamma", [0.05, None])
+def test_local_kpca_matches_jax(data, gamma):
+    """Fig. 4's baseline: one kPCA per node (gamma=None: each node's own
+    median bandwidth, as under the JAX package's vmap)."""
+    nodes, _ = data
+    got = local_kpca(nodes, KernelSpec(), 2, gamma=gamma, device=CPU)
+    want = j_local.local_kpca(jnp.asarray(nodes), JKernelSpec(), 2,
+                              gamma=None if gamma is None
+                              else jnp.asarray(gamma))
+    assert got.shape == (5, 16, 2)
+    _assert_close_up_to_sign(got, want, atol=1e-4)
+
+
+def test_neighborhood_kpca_matches_jax(data):
+    """Fig. 5's baseline: kPCA on each node's neighbourhood data."""
+    nodes, _ = data
+    got = neighborhood_kpca(nodes, ring(5, 1), KernelSpec(), 2, gamma=0.05,
+                            device=CPU)
+    want = j_local.neighborhood_kpca(jnp.asarray(nodes), j_topology.ring(5, 1),
+                                     JKernelSpec(), 2, gamma=jnp.asarray(0.05))
+    assert len(got) == len(want) == 5
+    for (a_t, x_t), (a_j, x_j) in zip(got, want):
+        np.testing.assert_array_equal(_np(x_t), np.asarray(x_j))
+        _assert_close_up_to_sign(a_t, a_j, atol=1e-4)
+
+
+def test_subspace_alignment_matches_jax(data):
+    nodes, pooled = data
+    rng = np.random.default_rng(9)
+    a_n = rng.normal(size=(16, 2)).astype(np.float32)
+    a_p = rng.normal(size=(80, 3)).astype(np.float32)
+    got = subspace_alignment(torch.as_tensor(a_n), torch.as_tensor(nodes[2]),
+                             torch.as_tensor(a_p), torch.as_tensor(pooled),
+                             KernelSpec(), gamma=torch.tensor(0.05))
+    want = j_metrics.subspace_alignment(
+        jnp.asarray(a_n), jnp.asarray(nodes[2]), jnp.asarray(a_p),
+        jnp.asarray(pooled), JKernelSpec(), gamma=jnp.asarray(0.05))
+    assert float(got) == pytest.approx(float(want), abs=1e-5)
+
+
+def _topk_checks(core, nodes, pooled, setup, alphas, alpha_gt, stack, gamma):
+    """(first component's mean similarity to central 1, mean alignment of
+    the 2-D subspace inside central top-3, second's similarity to central
+    1) in one package (``core``: its similarity/subspace_alignment)."""
+    j = nodes.shape[0]
+
+    def msim(a, comp):
+        return float(np.mean([float(core.similarity(
+            a[i], nodes[i], alpha_gt[:, comp], pooled, core.KernelSpec(),
+            gamma=gamma)) for i in range(j)]))
+
+    align = float(np.mean([float(core.subspace_alignment(
+        stack([alphas[0][i], alphas[1][i]]), nodes[i], alpha_gt[:, :3],
+        pooled, core.KernelSpec(), gamma=gamma)) for i in range(j)]))
+    return msim(alphas[0], 0), align, msim(alphas[1], 0)
+
+
+def test_run_admm_topk_matches_jax():
+    """Top-2 by deflation on tests/test_deflation.py's fixture, in both
+    packages from their own setups: the same similarity, alignment and
+    cross-similarity, each inside test_deflation's limits."""
+    import repro.core as j_core
+    import repro_torch.core as t_core
+    nodes, pooled = node_dataset(8, 80, m=32, seed=2)
+    s_j = j_admm.build_setup(jnp.asarray(nodes), j_topology.ring(8, 2),
+                             JKernelSpec())
+    gt_j, _, _ = j_central.central_kpca(jnp.asarray(pooled), JKernelSpec(), 4,
+                                        gamma=s_j.gamma)
+    want = _topk_checks(j_core, jnp.asarray(nodes), jnp.asarray(pooled), s_j,
+                        j_deflation.run_admm_topk(s_j, k=2, n_iters=40), gt_j,
+                        lambda a: jnp.stack(a, axis=1), s_j.gamma)
+    s_t = build_setup(nodes, ring(8, 2), KernelSpec(), device=CPU)
+    gt_t, _, _ = central_kpca(pooled, KernelSpec(), 4, gamma=s_t.gamma,
+                              device=CPU)
+    alphas = run_admm_topk(s_t, k=2, n_iters=40)
+    assert len(alphas) == 2 and alphas[1].shape == (8, 80)
+    got = _topk_checks(t_core, torch.as_tensor(nodes),
+                       torch.as_tensor(pooled), s_t, alphas, gt_t,
+                       lambda a: torch.stack(a, dim=1), s_t.gamma)
+    assert got[0] > 0.9 and got[1] > 0.85 and got[2] < 0.5, got
+    np.testing.assert_allclose(got, want, atol=5e-3)
+    k = s_t.k
+    num = torch.einsum("jn,jnm,jm->j", alphas[0], k, alphas[1])
+    d1 = torch.einsum("jn,jnm,jm->j", alphas[0], k, alphas[0])
+    d2 = torch.einsum("jn,jnm,jm->j", alphas[1], k, alphas[1])
+    assert float((num / torch.sqrt(d1 * d2 + 1e-12)).abs().max()) < 0.25
+
+
+def _paper_report() -> dict:
+    """The paper's experiment path at its size, in both packages on the
+    CPU, each from its own setup (median bandwidth, global centering,
+    30 iterations of the paper's rho schedule)."""
+    import time
+    import repro.core as j_core
+    import repro_torch.core as t_core
+    nodes, pooled = node_dataset(20, 100, m=784, seed=0)
+    out = {}
+    for name, core, make_ring, topk, asarray, stack, kw in (
+            ("jax", j_core, j_topology.ring, j_deflation.run_admm_topk,
+             jnp.asarray, lambda a: jnp.stack(a, axis=1), {}),
+            ("port", t_core, ring, run_admm_topk, torch.as_tensor,
+             lambda a: torch.stack(a, dim=1), {"device": CPU})):
+        t0 = time.perf_counter()
+        spec, graph = core.KernelSpec(), make_ring(20, hops=2)
+        setup = core.build_setup(asarray(nodes), graph, spec, **kw)
+        x, p = asarray(nodes), asarray(pooled)
+        gt, _, _ = core.central_kpca(p, spec, 3, gamma=setup.gamma, **kw)
+
+        def msim(alphas, xs, comp=0):
+            return float(np.mean([float(core.similarity(
+                alphas[i], xs[i], gt[:, comp], p, spec, gamma=setup.gamma))
+                for i in range(len(xs))]))
+
+        admm30 = msim(core.run_admm(setup, n_iters=30).alpha, x)
+        loc = core.local_kpca(x, spec, gamma=setup.gamma, **kw)
+        nb = core.neighborhood_kpca(x, graph, spec, gamma=setup.gamma, **kw)
+        top = topk(setup, k=2, n_iters=30)
+        s1, align, cross = _topk_checks(core, x, p, setup, top, gt, stack,
+                                        setup.gamma)
+        out[name] = dict(
+            admm30=admm30, local=msim(loc[..., 0], x),
+            neighborhood=msim([a[:, 0] for a, _ in nb], [xc for _, xc in nb]),
+            topk_first=s1, topk_alignment=align, topk_second_vs_first=cross,
+            seconds=time.perf_counter() - t0)
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    print(json.dumps(_paper_report(), indent=1))

@@ -15,11 +15,15 @@ import torch
 import jax.numpy as jnp
 
 from repro.core import KernelSpec as JKernelSpec
+from repro.kernels import admm_local_update_op as j_admm_op
+from repro.kernels import center_op as j_center_op
 from repro.kernels import gram_op as j_gram_op
 from repro.kernels import project_op as j_project_op
 from repro.kernels.project import project_partial_op as j_partial_op
 from repro_torch.core import KernelSpec
-from repro_torch.kernels import (gram_op, gram_tiles, project_op,
+from repro_torch.kernels import (admm_local_update, admm_local_update_op,
+                                 center_op, center_reference, center_tiles,
+                                 gram_op, gram_tiles, project_op,
                                  project_partial_op, project_tiles)
 from repro_torch.kernels.project.project import support_chunking
 
@@ -120,16 +124,26 @@ def test_project_partial_op_matches_jax():
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _launch_counts():
+    return (gram_tiles.launches, project_tiles.launches,
+            center_tiles.launches, admm_local_update.launches)
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     spec = KernelSpec(kind="rbf", gamma=0.1)
-    g0, p0 = gram_tiles.launches, project_tiles.launches
+    before = _launch_counts()
     x = torch.rand((6, 4))
     gram_op(spec, x)
     project_op(spec, x, x, torch.rand((6, 1)))
-    assert (gram_tiles.launches, project_tiles.launches) == (g0, p0)
+    center_op(torch.rand((2, 6, 6)))
+    v = torch.rand((2, 6, 6))
+    admm_local_update_op(v, torch.rand((2, 6, 1)), v, torch.rand((2, 6, 3)),
+                         torch.rand((2, 6, 3)), torch.rand((2, 1, 3)))
+    assert _launch_counts() == before
 
 
-@pytest.mark.parametrize("wrapper", ["gram", "project"])
+@pytest.mark.parametrize("wrapper", ["gram", "project", "center",
+                                     "admm_step"])
 def test_launch_wrappers_refuse_cpu_tensors(wrapper):
     """The kernel wrappers take CUDA tensors only: a CPU tensor raises
     instead of quietly running the plain version."""
@@ -139,9 +153,111 @@ def test_launch_wrappers_refuse_cpu_tensors(wrapper):
         if wrapper == "gram":
             x = torch.rand((1, 4, 3))
             gram_tiles(spec, x, x, torch.rand((1, 4)), torch.rand((1, 4)), g)
-        else:
+        elif wrapper == "project":
             project_tiles(spec, torch.rand((2, 3)), torch.rand((4, 3)),
                           torch.rand((4, 2)), torch.rand((4,)), g)
+        elif wrapper == "center":
+            center_tiles(torch.rand((1, 2, 4, 3)), torch.rand((1, 2, 4)),
+                         torch.rand((1, 2, 3)), torch.rand((1, 2)))
+        else:
+            v = torch.rand((1, 4, 4))
+            admm_local_update(v, torch.rand((1, 4, 1)), v,
+                              torch.rand((1, 4, 2)), torch.rand((1, 4, 2)),
+                              torch.rand((1, 1, 2)))
+
+
+@pytest.mark.parametrize("n,m", [(8, 8), (50, 70), (256, 256), (100, 300)])
+def test_center_op_matches_jax(n, m):
+    """``TestCenteringKernel``'s shapes and inputs."""
+    k = np.random.default_rng(n).normal(size=(n, m)).astype(np.float32)
+    want = np.asarray(j_center_op(jnp.asarray(k), interpret=True))
+    got = center_op(torch.as_tensor(k)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(center_reference(torch.as_tensor(k)).numpy(),
+                               want, rtol=2e-5, atol=2e-5)
+
+
+def test_center_op_composes_with_gram_like_jax():
+    x = np.random.default_rng(7).normal(size=(60, 20)).astype(np.float32)
+    spec = dict(kind="rbf", gamma=0.3)
+    want = np.asarray(j_center_op(j_gram_op(JKernelSpec(**spec),
+                                            jnp.asarray(x), interpret=True),
+                                  interpret=True))
+    got = center_op(gram_op(KernelSpec(**spec), torch.as_tensor(x))).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((3, 4), (4, 1), ((1, 0), (1, 0))),
+    ((2, 3, 4, 4), (48, 16, 4, 1), ((1, 0), (6, 16))),
+    # the setup's (J, S, S, N, N) block view: (J, S) merge, the last S not
+    ((2, 3, 3, 4, 4), (144, 48, 4, 12, 1), ((6, 48), (3, 4))),
+    ((2, 1, 5, 4), (20, 20, 1, 5), ((1, 0), (2, 20))),
+])
+def test_center_view_merges_batch_dims(shape, strides, want):
+    from repro_torch.kernels.centering.ops import _two_batch_dims
+    base = torch.arange(int(np.prod(shape)) * 4, dtype=torch.float32)
+    t = base.as_strided(shape, strides)
+    view = _two_batch_dims(t)
+    assert [(view.shape[i], view.stride(i)) for i in (0, 1)] == list(want)
+    assert view.stride()[2:] == t.stride()[-2:]
+    torch.testing.assert_close(view.reshape(t.shape), t, rtol=0, atol=0)
+
+
+def test_center_view_copies_past_two_batch_dims():
+    from repro_torch.kernels.centering.ops import _two_batch_dims
+    t = torch.rand((2, 3, 4, 5, 6)).permute(2, 0, 1, 3, 4)[:, :, ::2]
+    view = _two_batch_dims(t)
+    assert view.shape == (1, 16, 5, 6)
+    torch.testing.assert_close(view.reshape(t.shape), t, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("j,n,s", [(1, 16, 3), (4, 32, 5), (2, 128, 5),
+                                   (1, 256, 9)])
+def test_admm_local_update_op_matches_jax(j, n, s):
+    """``TestAdmmStepKernel``'s shapes and inputs, at its 2e-4."""
+    rng = np.random.default_rng(n + s)
+    v = rng.normal(size=(j, n, n)).astype(np.float32)
+    invd = rng.uniform(0.1, 1.0, size=(j, n, 1)).astype(np.float32)
+    k = rng.normal(size=(j, n, n)).astype(np.float32)
+    b = rng.normal(size=(j, n, s)).astype(np.float32)
+    g = rng.normal(size=(j, n, s)).astype(np.float32)
+    rho = rng.uniform(0.0, 2.0, size=(j, 1, s)).astype(np.float32)
+    ins = (v, invd, k, b, g, rho)
+    want_a, want_b = j_admm_op(*map(jnp.asarray, ins), interpret=True)
+    got_a, got_b, got_ka = admm_local_update_op(*map(torch.as_tensor, ins))
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(got_ka.numpy(), k @ np.asarray(want_a),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_matches_admm_iteration_algebra():
+    """The fused op reproduces the alpha/B update inside the port's own
+    ``admm_iteration`` (same rhs/solve/eta algebra), as
+    ``TestAdmmStepKernel`` holds the JAX kernel to the JAX solver."""
+    from repro_torch.core import admm_iteration, build_setup, ring
+    from repro_torch.core.admm import _slot_rho
+    from repro_torch.data import node_dataset
+    nodes, _ = node_dataset(5, 16, 8, seed=0)
+    setup = build_setup(nodes, ring(5, 1), KernelSpec("rbf", 0.5),
+                        device="cpu")
+    alpha = torch.as_tensor(_rand((5, 16), 0))
+    b = torch.zeros((5, 16, setup.n_slots))
+    a_ref, b_ref, g, _ = admm_iteration(setup, alpha, b, 100.0, 10.0)
+    rho_slots = _slot_rho(setup, 100.0, 10.0)
+    lam = setup.lam
+    den = torch.sum(rho_slots, dim=1)[:, None] * lam - 2.0 * lam * lam
+    inv = torch.where(lam > 1e-5 * lam[:, -1:],
+                      1.0 / torch.maximum(den, 1e-6 * lam),
+                      torch.zeros_like(lam))
+    mask = setup.mask.to(torch.float32)[:, None, :]
+    got_a, got_b, _ = admm_local_update_op(setup.vec, inv[..., None], setup.k,
+                                           b * mask, g, rho_slots[:, None, :])
+    torch.testing.assert_close(got_a[..., 0], a_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got_b * mask, b_ref, rtol=2e-4, atol=2e-4)
 
 
 def test_mixed_devices_raise():

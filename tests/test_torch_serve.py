@@ -30,8 +30,9 @@ from repro.core import topology as j_topology
 from repro.core.kernels_math import KernelSpec as JKernelSpec
 from repro.serve import KpcaEngine as JKpcaEngine
 from repro.serve import KpcaServeConfig as JKpcaServeConfig
-from repro_torch.core import (KernelSpec, build_setup, central_kpca, oos,
-                              ring, run_admm, similarity)
+from repro_torch.core import (KernelSpec, build_setup, central_kpca,
+                              local_kpca, neighborhood_kpca, oos, ring,
+                              run_admm, similarity)
 from repro_torch.data import kpca_dataset, node_dataset
 from repro_torch.serve import KpcaEngine, KpcaServeConfig, ModelHandle
 
@@ -202,7 +203,8 @@ print(len(names))
 @pytest.mark.parametrize("entry", ["build_setup", "central_kpca",
                                    "fit_central", "from_dual",
                                    "from_decentralized", "load_fitted",
-                                   "engine"])
+                                   "engine", "local_kpca",
+                                   "neighborhood_kpca"])
 def test_entry_points_refuse_to_run_without_a_card(entry, monkeypatch,
                                                    fitted, tmp_path):
     """With no CUDA device and no explicit device="cpu", an entry point
@@ -220,6 +222,9 @@ def test_entry_points_refuse_to_run_without_a_card(entry, monkeypatch,
             nodes, np.ones((3, 4)), spec),
         "load_fitted": lambda: oos.load_fitted(str(tmp_path)),
         "engine": lambda: KpcaEngine(fitted[0]),
+        "local_kpca": lambda: local_kpca(nodes, spec),
+        "neighborhood_kpca": lambda: neighborhood_kpca(nodes, ring(3, 1),
+                                                       spec),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
