@@ -6,13 +6,16 @@
 Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
 
   device   card name, count, and nvidia-smi's name + power limit;
-  build    nvcc build of every kernel source (src/repro_torch/kernels/csrc);
+  build    nvcc build of every kernel source (src/repro_torch/kernels/csrc),
+           and the count of wgmma (HGMMA) instructions in the library;
   kernels  each hand-written kernel against its plain PyTorch version on the
            card at the main path's shapes: max abs error, kernel / plain /
            library times per call (CUDA events over back-to-back calls,
-           host launch cost included), the kernel's own device time (a
-           torch.profiler trace), and the least time the card could take
-           (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+           host launch cost included; for gram and center, every launch of
+           the op), the kernels' own device time (a torch.profiler trace),
+           and the least time the card could take (bytes over 3.35 TB/s, or
+           operations over 67 TFLOP/s fp32, or for gram 3 x TF32 products
+           over 495 TFLOP/s, a self-Gram counting n(n+1)/2 pairs);
   fit      the paper's Fig. 3/5 configuration: J=20 nodes x N=100 samples x
            M=784, ring(20, hops=2), global centering, 30 ADMM iterations,
            central kPCA on the pooled 2000 x 784; similarity at 1/10/30;
@@ -52,6 +55,7 @@ script. It imports nothing of JAX or of the JAX package.
 """
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -60,6 +64,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 TOL = 2e-4                     # kernel vs plain and engine vs plain
 TOLERANCE = ("|kernel - plain| <= 2e-4 * max(1, |plain|): absolute for the "
@@ -116,10 +121,11 @@ def event_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernels, iters: int = 10):
-    """Mean milliseconds per call that the card spent in the named kernels,
-    summed from a ``torch.profiler`` trace of ``iters`` calls (no host
-    launch overhead); None where the trace holds no device time."""
+def device_kernels(torch, fn, iters: int = 10) -> dict:
+    """Milliseconds per call that the card spent in each device kernel or
+    copy, from a ``torch.profiler`` trace of ``iters`` calls (no host launch
+    overhead)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -128,10 +134,17 @@ def device_ms(torch, fn, kernels, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0) or 0
-                   for e in prof.key_averages()
-                   if any(k in e.key for k in kernels))
-    return total_us / iters / 1e3 if total_us else None
+    return {e.key: e.device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+
+
+def device_ms(torch, fn, kernels, iters: int = 10):
+    """Mean milliseconds per call that the card spent in the named kernels;
+    None where the trace holds no device time."""
+    total = sum(ms for key, ms in device_kernels(torch, fn, iters).items()
+                if any(k in key for k in kernels))
+    return total or None
 
 
 def errors(got, want) -> dict:
@@ -143,44 +156,59 @@ def errors(got, want) -> dict:
         (diff / torch.clamp(want.abs(), min=1.0)).max()))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def gram_record(spec, x, g, label, y=None):
-    """The gram kernel on a (Z, n, m) batch of x against y (Z, k, m) with
-    its own norms, or against x itself (y=None), as the main path calls
-    it."""
+    """What ``gram_op`` launches on the card (split passes and the
+    tensor-core kernel) for a (Z, n, m) batch x against y (Z, k, m), or
+    against x itself (y=None: symmetric tiles, K must equal K^T exactly)."""
     import torch
     from repro_torch.kernels import gram_reference, gram_tiles
-    from repro_torch.kernels.gram.ops import row_norms
-    sx = row_norms(spec, x)
-    cross = y is not None
-    y, sy = (y, row_norms(spec, y)) if cross else (x, sx)
 
     def run():
-        return gram_tiles(spec, x, y, sx, sy, g)
+        return gram_tiles(spec, x, y, g)
 
     got = run()
     want = gram_reference(spec, x, y, gamma=g)
     torch.cuda.synchronize()
-    (z, n, m), k = x.shape, y.shape[1]
-    b_ms, b_by = bound(flops=z * n * k * (2 * m + 4),
-                       nbytes=4 * (z * n * (m + 1) + cross * z * k * (m + 1)
-                                   + z * n * k + 1))
+    cross = y is not None
+    yy = y if cross else x
+    (z, n, m), k = x.shape, yy.shape[1]
+    if not cross:
+        check(torch.equal(got, got.mT), f"gram {label}: self-Gram not "
+                                        f"exactly symmetric")
+    pairs = z * n * k if cross else z * n * (n + 1) // 2
+    nbytes = 4 * (z * n * m + cross * z * k * m + z * n * k + 1)
+    b_ms, b_by = bound(flops=3 * 2 * pairs * m, nbytes=nbytes,
+                       peak=PEAK_TF32_FLOPS)
+    kern = device_kernels(torch, run)
+    # fp32 grade: the kernel within 2x the plain fp32 version's error, both
+    # against a float64 Gram of the same inputs
+    exact = gram_reference(spec, x.double(), None if y is None
+                           else y.double(), gamma=g.double())
+    fp64_err = float((got.double() - exact).abs().max())
+    fp64_err_plain = float((want.double() - exact).abs().max())
+    check(fp64_err <= 2.0 * fp64_err_plain,
+          f"gram {label}: error against float64 {fp64_err:.3g} > 2 x the "
+          f"plain version's {fp64_err_plain:.3g}")
     return dict(
         shape=label, **errors(got, want),
+        fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 20),
-        device_ms=device_ms(torch, run, ("gram_kernel",)),
+        device_ms=sum(v for key, v in kern.items() if "gram_" in key),
+        device_kernels={key[:80]: v for key, v in kern.items()},
         plain_ms=event_ms(torch, lambda: gram_reference(spec, x, y, gamma=g),
                           20),
         library_ms=event_ms(torch, lambda: torch.exp(
-            torch.cdist(x, y).square_().mul_(-g)), 20),
-        matmul_ms=event_ms(torch, lambda: torch.matmul(x, y.transpose(1, 2)),
+            torch.cdist(x, yy).square_().mul_(-g)), 20),
+        matmul_ms=event_ms(torch, lambda: torch.matmul(x, yy.transpose(1, 2)),
                            20),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=bound(flops=z * n * k * (2 * m + 4), nbytes=nbytes)[0])
 
 
 def project_record(spec, model, xq):
@@ -217,32 +245,30 @@ def project_record(spec, model, xq):
 
 
 def center_record(k, label):
-    """The centering kernel on k (..., n, m) at its own strides, with the
-    row / column / total means the wrapper forms (``op_ms`` times the
-    wrapper: the three means and the launch)."""
+    """The centering op on k (..., n, m) at its own strides, means
+    included, timed as the kernel (all of its launches); the device kernels
+    of one op's trace are listed, and must all be centering kernels."""
     import torch
-    from repro_torch.kernels import center_op, center_reference, center_tiles
-    from repro_torch.kernels.centering.ops import _two_batch_dims
-    view = _two_batch_dims(k)
-    means = (torch.mean(view, dim=-1).contiguous(),
-             torch.mean(view, dim=-2).contiguous(),
-             torch.mean(view, dim=(-2, -1)).contiguous())
+    from repro_torch.kernels import center_op, center_reference
 
     def run():
-        return center_tiles(view, *means)
+        return center_op(k)
 
-    got = run().reshape(k.shape)
+    got = run()
     want = center_reference(k)
     torch.cuda.synchronize()
-    z1, z2, n, m = view.shape
-    z = z1 * z2
+    *lead, n, m = k.shape
+    z = math.prod(lead)
     b_ms, b_by = bound(flops=3 * z * n * m,
-                       nbytes=4 * (2 * z * n * m + z * (n + m + 1)))
+                       nbytes=4 * (2 * z * n * m))
+    kern = device_kernels(torch, run)
+    check(all("center_" in key for key in kern),
+          f"center {label}: the op launched other kernels: {sorted(kern)}")
+    ms = event_ms(torch, run, 20)
     return dict(
         shape=label, contiguous=k.is_contiguous(), **errors(got, want),
-        ms=event_ms(torch, run, 20),
-        device_ms=device_ms(torch, run, ("center_kernel",)),
-        op_ms=event_ms(torch, lambda: center_op(k), 20),
+        ms=ms, op_ms=ms, device_ms=sum(kern.values()),
+        device_kernels={key[:80]: v for key, v in kern.items()},
         plain_ms=event_ms(torch, lambda: center_reference(k), 20),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
@@ -593,11 +619,16 @@ def phase_serve_stream(dev, models) -> None:
     rows = sum(x.shape[0] for x in requests)
     flat = np.concatenate(requests)
     out = {}
+    from repro_torch.kernels import project_tiles
     for name, mdl in models:
         engine = KpcaEngine(mdl, KpcaServeConfig(max_batch=128,
                                                  min_bucket=8), device=dev)
+        before = project_tiles.launches
         (scores, drains), wall, trace = timed_and_traced(
             torch, lambda: drain_stream(engine, requests, STREAM_PER_DRAIN))
+        # timed_and_traced drains the stream three times (warm, timed,
+        # traced); the launches of one pass
+        project_launches = (project_tiles.launches - before) // 3
         got = np.concatenate(scores)
         err = 0.0
         for i in range(0, rows, 16384):
@@ -618,7 +649,7 @@ def phase_serve_stream(dev, models) -> None:
             drain_ms_p99=float(np.percentile(drain_ms, 99)),
             drain_ms_max=float(drain_ms.max()),
             padded_share=stats.n_padded / (stats.n_queries + stats.n_padded),
-            **trace)
+            project_launches=project_launches, **trace)
     emit("serve_stream", requests=len(requests), rows=rows,
          drains=-(-len(requests) // STREAM_PER_DRAIN),
          per_drain=STREAM_PER_DRAIN, max_batch=128, min_bucket=8,
@@ -665,9 +696,15 @@ def main() -> int:
     _build.load_library()
     usage = [ln.split("info    : ", 1)[-1] for ln in info.log.splitlines()
              if "Used" in ln or "spill" in ln]
+    # the gram kernel must run on the tensor cores: wgmma is HGMMA in SASS
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(info.path)], capture_output=True, text=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     emit("build", seconds=info.seconds, library=str(info.path.relative_to(
         ROOT)), sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
-        ptxas=usage)
+        ptxas=usage, hgmma_instructions=hgmma)
+    check(hgmma > 0, "no wgmma (HGMMA) instruction in the built library")
 
     from repro_torch.core import (KernelSpec, build_setup, central_kpca,
                                   local_kpca, neighborhood_kpca, oos, ring,
@@ -799,7 +836,9 @@ def main() -> int:
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
+            shape=r["shape"],
+            **({"bound_fp32_ms": r["bound_fp32_ms"]} if name == "gram"
+               else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

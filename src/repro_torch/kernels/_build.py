@@ -36,10 +36,10 @@ _p, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
 # C entry points (csrc/*.cu): every one returns cudaGetLastError().
 SIGNATURES = {
-    # x, y, sx, sy, gamma, out, batch, n, k, m, x/y/sx/sy/out batch strides,
-    # kind, degree, coef, scale, normalize, stream
-    "kpca_gram": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-                  _ll, _ll, _ll, _ll, _ll, _i, _i, _f, _f, _i, _p],
+    # x, y (NULL: y is x), scratch, gamma, out, batch, n, k, m, padded m,
+    # tile rows, kind, degree, coef, scale, normalize, stream
+    "kpca_gram": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+                  _f, _i, _p],
     # xq, xs, a, ss, gamma, scratch, b, l, m, cp1, tiles_per_chunk,
     # kind, degree, coef, scale, normalize, stream
     "kpca_project_partials": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
@@ -47,10 +47,10 @@ SIGNATURES = {
     # scratch, cvec, bvec, out, n_chunks, b, cp1, with_epilogue, inv_l,
     # stream
     "kpca_project_finalize": [_p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
-    # k, row, col, tot, out, z1, z2, n, m, k's strides (s1, s2, sn, sm),
-    # stream
-    "kpca_center": [_p, _p, _p, _p, _p, _i, _i, _i, _i,
-                    _ll, _ll, _ll, _ll, _p],
+    # k, scratch, out, z1, z2, n, m, k's strides (s1, s2, sn, sm), rows
+    # per slab (0: one launch), slabs, column tiles, vec, stream
+    "kpca_center": [_p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i,
+                    _i, _i, _p],
     # v, inv, k, b, g, rho, alpha, bout, ka, j, n, s, b strides (j, n, s),
     # g strides (j, n, s), stream
     "kpca_admm_step": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,

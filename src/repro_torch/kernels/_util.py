@@ -7,9 +7,12 @@ takes the plain PyTorch version, anything else raises (``on_card``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
+
+SMS = 132   # streaming multiprocessors of the H100 the grids are sized for
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -43,9 +46,23 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def stream_of(device: torch.device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device`` as a ctypes argument."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_of(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``: its raw handle, read without
+    building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+def launch_guard(device: torch.device):
+    """A launch goes to the current device: the device's context where it
+    is another, else nothing to enter."""
+    if _index(device) == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
 
 
 def check_launch(name: str, rc: int) -> None:
@@ -60,5 +77,5 @@ def cdiv(v: int, m: int) -> int:
     return (v + m - 1) // m
 
 
-__all__ = ["cdiv", "check_kernel_operand", "check_launch", "on_card", "ptr",
-           "stream_of"]
+__all__ = ["SMS", "cdiv", "check_kernel_operand", "check_launch",
+           "launch_guard", "on_card", "ptr", "stream_of"]

@@ -1,15 +1,18 @@
-// Shared building blocks of the gram and project kernels: the fp32 SIMT
-// tile product  acc[i][j] = sum_k A[row_i, k] * B[row_j, k]  over the feature
-// axis, and the fused kernel-function epilogue (rbf / linear / poly with the
-// self-kernel normalize) that both kernels apply to the finished dot products.
+// Shared building blocks of the gram and project kernels: the fused
+// kernel-function epilogue (rbf / linear / poly with the self-kernel
+// normalize) that both apply to their finished dot products, and the fp32
+// SIMT tile product  acc[i][j] = sum_k A[row_i, k] * B[row_j, k]  over the
+// feature axis, whose only user is the project kernel (gram runs on the
+// tensor cores, csrc/gram.cu).
 //
-// Both operands are row-major with the contraction along the row (the feature
-// axis M), so one tile of each is staged through shared memory per step of
-// BK features, transposed on the way in so that the inner loop reads
-// consecutive addresses. Rows and features past the operand's edge load as
-// zero: no operand is ever padded by the caller. Accumulation is IEEE fp32
-// (fmaf), in the same order for every output element whatever its position
-// in the tile, so a row's result does not depend on how rows were batched.
+// TileDot: both operands are row-major with the contraction along the row
+// (the feature axis M), so one tile of each is staged through shared memory
+// per step of BK features, transposed on the way in so that the inner loop
+// reads consecutive addresses. Rows and features past the operand's edge
+// load as zero: no operand is ever padded by the caller. Accumulation is
+// IEEE fp32 (fmaf), in the same order for every output element whatever its
+// position in the tile, so a row's result does not depend on how rows were
+// batched.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,9 +1,9 @@
 """Public Gram entry: the tensor's device picks the kernel or the plain
 version.
 
-On a CUDA tensor: gamma resolution and the squared norms (rbf) or
-self-kernels (linear/poly) in PyTorch, then ONE launch of the gram kernel
-for the whole batch. On a CPU tensor: ``gram_reference``. Matches
+On a CUDA tensor: gamma resolution, then the gram kernels for the whole
+batch (the split pass forms the row norms; ``y=None`` takes the symmetric
+path). On a CPU tensor: ``gram_reference``. Matches
 ``repro.kernels.gram.ops.gram_op`` (tests/test_torch_kernels.py).
 """
 
@@ -23,16 +23,15 @@ def gram_op(spec: KernelSpec, x: torch.Tensor,
             y: Optional[torch.Tensor] = None,
             gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K[..., i, j] = K(x_i, y_j) for x (n, m) / y (k, m), or a batch
-    x (Z, n, m) / y (Z, k, m). ``y=None`` means y = x."""
+    x (Z, n, m) / y (Z, k, m). ``y=None`` (or y is x) means y = x."""
     operands = (x,) if y is None else (x, y)
     if not on_card(*operands):
         return gram_reference(spec, x, y, gamma=gamma)
     batched = x.dim() == 3
     xb = (x if batched else x[None]).contiguous()
-    yb = xb if y is None else (y if batched else y[None]).contiguous()
-    sx = row_norms(spec, xb)
-    sy = sx if y is None else row_norms(spec, yb)
-    out = gram_tiles(spec, xb, yb, sx, sy, gamma_operand(spec, x, gamma))
+    yb = None if y is None or y is x else (y if batched
+                                          else y[None]).contiguous()
+    out = gram_tiles(spec, xb, yb, gamma_operand(spec, x, gamma))
     return out if batched else out[0]
 
 
@@ -48,8 +47,8 @@ def gamma_operand(spec: KernelSpec, x: torch.Tensor,
 
 
 def row_norms(spec: KernelSpec, x: torch.Tensor) -> torch.Tensor:
-    """What the kernels' epilogue takes per row: the squared norm (rbf) or
-    the self-kernel (linear/poly)."""
+    """What the project kernel's epilogue takes per support row: the
+    squared norm (rbf) or the self-kernel (linear/poly)."""
     if spec.kind == "rbf":
         return torch.sum(x * x, dim=-1).contiguous()
     return _self_k(spec, x).contiguous()

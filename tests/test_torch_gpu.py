@@ -73,6 +73,67 @@ def test_gram_kernel_batched_one_launch(cuda):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+EDGES = (1, 63, 64, 65, 127, 129, 500)
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+@pytest.mark.parametrize("m", [5, 31, 32, 33, 784])
+@pytest.mark.parametrize("n", EDGES)
+def test_gram_kernel_tile_edges(cuda, kind, n, m):
+    """Rows on both sides of the 64- and 128-row tile edges, features on
+    both sides of the 32-float K-tile: a cross Gram against the next edge
+    size, and a batched self-Gram, which must be exactly symmetric."""
+    spec = SPECS[kind]
+    k = EDGES[(EDGES.index(n) + 1) % len(EDGES)]
+    x = _rand((n, m), n + m, cuda, 1.0 / np.sqrt(m))
+    y = _rand((k, m), k + 3 * m, cuda, 1.0 / np.sqrt(m))
+    tol = _tol(m)
+    torch.testing.assert_close(gram_op(spec, x, y), gram_reference(spec, x, y),
+                               rtol=tol, atol=tol)
+    xb = _rand((3, n, m), n + 5 * m, cuda, 1.0 / np.sqrt(m))
+    got = gram_op(spec, xb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.mT)
+    torch.testing.assert_close(got, gram_reference(spec, xb), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+@pytest.mark.parametrize("shape", ["130x257x784", "2000x784"])
+def test_gram_kernel_is_fp32_grade(cuda, kind, shape):
+    """3xTF32 keeps fp32's accuracy: against a float64 Gram on the card,
+    the kernel's largest error is at most twice the plain fp32 version's.
+    (Plain TF32 products would miss by orders of magnitude.)"""
+    spec = SPECS[kind]
+    n, *rest = map(int, shape.split("x"))
+    k, m = rest if len(rest) == 2 else (None, rest[0])
+    x = _rand((n, m), 1, cuda, 1.0 / np.sqrt(m))
+    y = None if k is None else _rand((k, m), 2, cuda, 1.0 / np.sqrt(m))
+    g = torch.tensor(0.3, device=cuda)
+    got = gram_op(spec, x, y, gamma=g)
+    plain = gram_reference(spec, x, y, gamma=g)
+    exact = gram_reference(spec, x.double(), None if y is None
+                           else y.double(), gamma=g.double())
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
+
+
+@pytest.mark.parametrize("case", ["2000x784", "20x500x784", "100x2000x784"])
+def test_gram_kernel_same_bits_every_call(cuda, case):
+    """No atomics: the same call gives the same bits every time."""
+    spec = KernelSpec(kind="rbf", gamma=1.0 / 30)
+    if case == "100x2000x784":
+        y = _rand((2000, 784), 3, cuda, 0.05)
+        x = y[:100]
+    else:
+        x = _rand(tuple(map(int, case.split("x"))), 4, cuda, 0.05)
+        y = None
+    first = gram_op(spec, x, y)
+    for _ in range(3):
+        assert torch.equal(gram_op(spec, x, y), first)
+
+
 @pytest.mark.parametrize("kind", sorted(SPECS))
 @pytest.mark.parametrize("b,l,m,c", [(1, 1, 3, 1), (8, 500, 784, 1),
                                      (33, 77, 40, 3), (128, 2000, 784, 1),
@@ -243,13 +304,22 @@ def _strided_blocks(dev):
 
 @pytest.mark.parametrize("case", ["1x1", "7x33", "100x300", "2000x2000",
                                   "20x100x100", "20x500x500", "blocks",
-                                  "transposed", "copied"])
+                                  "transposed", "copied", "128x128",
+                                  "129x129", "132x222x222", "132x223x223",
+                                  "3x300x170", "2x170x301",
+                                  "1x100000", "500x500"])
 def test_center_kernel_matches_plain(cuda, case):
     """Ragged, batched and strided inputs against the plain version on the
-    same CUDA tensor; one launch per call."""
+    same CUDA tensor, on both sides of each switch to two passes (a lone
+    block past 64 KB; a wave of blocks past the shared memory); one launch
+    per call."""
     shapes = {"1x1": (1, 1), "7x33": (7, 33), "100x300": (100, 300),
               "2000x2000": (2000, 2000), "20x100x100": (20, 100, 100),
-              "20x500x500": (20, 500, 500)}
+              "20x500x500": (20, 500, 500), "128x128": (128, 128),
+              "129x129": (129, 129), "132x222x222": (132, 222, 222),
+              "132x223x223": (132, 223, 223), "3x300x170": (3, 300, 170),
+              "2x170x301": (2, 170, 301), "1x100000": (1, 100000),
+              "500x500": (500, 500)}
     if case in shapes:
         k = _rand(shapes[case], 5, cuda)
     elif case == "blocks":
@@ -265,6 +335,30 @@ def test_center_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert got.shape == k.shape and got.is_contiguous()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["2000x2000", "20x100x100", "blocks",
+                                  "transposed"])
+def test_center_op_launches_only_its_kernels(cuda, case):
+    """The op forms its means itself: a trace of one call holds the
+    centering kernels and no PyTorch kernel (no reduction, no copy of the
+    strided block view)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    k = {"2000x2000": lambda: _rand((2000, 2000), 8, cuda),
+         "20x100x100": lambda: _rand((20, 100, 100), 9, cuda),
+         "blocks": lambda: _strided_blocks(cuda),
+         "transposed": lambda: _rand((3, 40, 70), 6, cuda).transpose(1, 2)
+         }[case]()
+    center_op(k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        center_op(k)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+    assert names and all("center_" in n and "_kernel" in n
+                         for n in names), names
 
 
 def test_block_centered_setup_on_card_launches_center(cuda):

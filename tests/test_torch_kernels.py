@@ -152,18 +152,129 @@ def test_launch_wrappers_refuse_cpu_tensors(wrapper):
     with pytest.raises(ValueError, match="CUDA tensor"):
         if wrapper == "gram":
             x = torch.rand((1, 4, 3))
-            gram_tiles(spec, x, x, torch.rand((1, 4)), torch.rand((1, 4)), g)
+            gram_tiles(spec, x, x, g)
         elif wrapper == "project":
             project_tiles(spec, torch.rand((2, 3)), torch.rand((4, 3)),
                           torch.rand((4, 2)), torch.rand((4,)), g)
         elif wrapper == "center":
-            center_tiles(torch.rand((1, 2, 4, 3)), torch.rand((1, 2, 4)),
-                         torch.rand((1, 2, 3)), torch.rand((1, 2)))
+            center_tiles(torch.rand((1, 2, 4, 3)))
         else:
             v = torch.rand((1, 4, 4))
             admm_local_update(v, torch.rand((1, 4, 1)), v,
                               torch.rand((1, 4, 2)), torch.rand((1, 4, 2)),
                               torch.rand((1, 1, 2)))
+
+
+@pytest.mark.parametrize("wrapper", ["gram_self", "center_strided"])
+def test_launch_wrappers_refuse_cpu_tensors_on_new_paths(wrapper):
+    """The symmetric gram path and a strided centring view refuse CPU
+    tensors as the plain calls do."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if wrapper == "gram_self":
+            gram_tiles(KernelSpec(kind="linear"), torch.rand((2, 5, 3)), None,
+                       torch.tensor(0.0))
+        else:
+            center_tiles(torch.rand((3, 6, 8)).transpose(1, 2))
+
+
+def _tf32_rna(t):
+    """Round fp32 to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, by bit masking: what ``cvt.rna.tf32.f32`` does."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_3xtf32(t):
+    hi = _tf32_rna(t)
+    return hi, _tf32_rna(t - hi)
+
+
+def _gram_3xtf32(spec, x, y):
+    """The gram kernel's arithmetic in plain PyTorch: the dot products
+    from the 3xTF32 split (lo.hi + hi.lo + hi.hi), the epilogue on the fp32
+    row norms."""
+    from repro_torch.core.kernels_math import _self_k
+    (xh, xl), (yh, yl) = _split_3xtf32(x), _split_3xtf32(y)
+    dot = xl @ yh.T + xh @ yl.T + xh @ yh.T
+    if spec.kind == "rbf":
+        d2 = (torch.sum(x * x, -1)[:, None] + torch.sum(y * y, -1)[None, :]
+              - 2.0 * dot)
+        return torch.exp(-spec.gamma * torch.clamp(d2, min=0.0))
+    k = dot * spec.scale
+    if spec.kind == "poly":
+        k = (k + spec.coef) ** spec.degree
+    if spec.normalize:
+        k = k / torch.sqrt(torch.clamp(
+            _self_k(spec, x)[:, None] * _self_k(spec, y)[None, :], min=1e-12))
+    return k
+
+
+@pytest.mark.parametrize("m", [5, 37, 300, 784])
+def test_tf32_split_reconstructs_fp32(m):
+    x = torch.as_tensor(_rand((64, m), m))
+    hi, lo = _split_3xtf32(x)
+    for part in (hi, lo):          # TF32: the low 13 mantissa bits are zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs().clamp(min=1e-30))
+    assert float(rel.max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("kind", sorted(SPEC_KW))
+@pytest.mark.parametrize("n,k,m", [(8, 8, 4), (17, 9, 9), (100, 37, 37),
+                                   (33, 70, 300)])
+def test_gram_3xtf32_emulation_matches_jax(kind, n, k, m):
+    """``test_gram_op_matches_jax``'s inputs through the kernel's 3xTF32
+    arithmetic, at 2e-5: the split loses nothing fp32 keeps."""
+    x = _rand((n, m), n + m, 1 / np.sqrt(m))
+    y = _rand((k, m), k + m + 1, 1 / np.sqrt(m))
+    want = np.asarray(j_gram_op(JKernelSpec(**SPEC_KW[kind]), jnp.asarray(x),
+                                jnp.asarray(y), interpret=True))
+    got = _gram_3xtf32(KernelSpec(**SPEC_KW[kind]), torch.as_tensor(x),
+                       torch.as_tensor(y)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("m,want", [(1, 32), (5, 32), (31, 32), (32, 32),
+                                    (33, 64), (784, 800)])
+def test_gram_padded_row_stride(m, want):
+    from repro_torch.kernels.gram.gram import padded_stride
+    assert padded_stride(m) == want
+
+
+@pytest.mark.parametrize("z,n,k,symmetric,want", [
+    (1, 2000, 2000, True, 128),        # central / similarity self-Gram
+    (20, 500, 500, True, 128),         # the setup's batched slot Grams
+    (1, 5, 5, True, 128),              # symmetric tiles stay square
+    (1, 100, 2000, False, 64),         # similarity's cross Gram: 16 tiles
+    (1, 500, 2000, False, 64),         # compress: 64 tiles at 128 rows
+    (1, 2000, 2000, False, 128),       # a full grid of 256 tiles
+    (20, 100, 2000, False, 128)])      # 20 x 16 tiles: past one wave
+def test_gram_tile_rows(z, n, k, symmetric, want):
+    from repro_torch.kernels.gram.gram import tile_rows
+    assert tile_rows(z, n, k, symmetric) == want
+
+
+@pytest.mark.parametrize("z,n,m,want", [
+    (20, 100, 100, (True, 0, 0, 0)),        # local baseline: 40 KB blocks
+    (500, 100, 100, (True, 0, 0, 0)),       # the setup's block view
+    (1, 7, 33, (True, 0, 0, 0)),
+    (1, 128, 128, (True, 0, 0, 0)),         # a lone 64 KB block
+    (1, 129, 129, (False, 12, 11, 2)),      # a lone block past 64 KB
+    (132, 222, 222, (True, 0, 0, 0)),       # a wave of 197 KB blocks
+    (132, 223, 223, (False, 223, 1, 2)),    # past the shared memory
+    (1, 222, 222, (False, 16, 14, 2)),      # fits, but alone
+    (1, 2000, 2000, (False, 118, 17, 16)),  # central: 272 blocks
+    (20, 500, 500, (False, 125, 4, 4)),     # setup's slot Grams: 320
+    (1, 500, 500, (False, 23, 22, 4)),      # a neighbourhood's Gram
+    (1, 1, 100000, (False, 1, 1, 782))])    # one row, 782 column tiles
+def test_center_plan(z, n, m, want):
+    from repro_torch.kernels.centering.centering import center_plan
+    plan = center_plan(z, n, m)
+    assert (plan.small, plan.rows, plan.slabs, plan.col_tiles) == want
+    if not plan.small:
+        assert plan.rows * plan.slabs >= n > plan.rows * (plan.slabs - 1)
+        assert plan.rows <= 256
 
 
 @pytest.mark.parametrize("n,m", [(8, 8), (50, 70), (256, 256), (100, 300)])
@@ -195,21 +306,17 @@ def test_center_op_composes_with_gram_like_jax():
     ((2, 1, 5, 4), (20, 20, 1, 5), ((1, 0), (2, 20))),
 ])
 def test_center_view_merges_batch_dims(shape, strides, want):
-    from repro_torch.kernels.centering.ops import _two_batch_dims
-    base = torch.arange(int(np.prod(shape)) * 4, dtype=torch.float32)
-    t = base.as_strided(shape, strides)
-    view = _two_batch_dims(t)
-    assert [(view.shape[i], view.stride(i)) for i in (0, 1)] == list(want)
-    assert view.stride()[2:] == t.stride()[-2:]
-    torch.testing.assert_close(view.reshape(t.shape), t, rtol=0, atol=0)
+    from repro_torch.kernels.centering.centering import merge_batch_dims
+    assert merge_batch_dims(shape[:-2], strides[:-2]) == want
 
 
 def test_center_view_copies_past_two_batch_dims():
-    from repro_torch.kernels.centering.ops import _two_batch_dims
+    from repro_torch.kernels.centering.centering import merge_batch_dims
     t = torch.rand((2, 3, 4, 5, 6)).permute(2, 0, 1, 3, 4)[:, :, ::2]
-    view = _two_batch_dims(t)
-    assert view.shape == (1, 16, 5, 6)
-    torch.testing.assert_close(view.reshape(t.shape), t, rtol=0, atol=0)
+    assert merge_batch_dims(tuple(t.shape[:-2]), t.stride()[:-2]) is None
+    c = t.contiguous()
+    assert merge_batch_dims(tuple(c.shape[:-2]),
+                            c.stride()[:-2]) == ((1, 0), (16, 30))
 
 
 @pytest.mark.parametrize("j,n,s", [(1, 16, 3), (4, 32, 5), (2, 128, 5),
