@@ -7,15 +7,18 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
 
   device   card name, count, and nvidia-smi's name + power limit;
   build    nvcc build of every kernel source (src/repro_torch/kernels/csrc),
-           and the count of wgmma (HGMMA) instructions in the library;
+           and the count of wgmma (HGMMA) instructions per kernel function
+           (gram's and project's must hold some);
   kernels  each hand-written kernel against its plain PyTorch version on the
            card at the main path's shapes: max abs error, kernel / plain /
            library times per call (CUDA events over back-to-back calls,
            host launch cost included; for gram and center, every launch of
            the op), the kernels' own device time (a torch.profiler trace),
            and the least time the card could take (bytes over 3.35 TB/s, or
-           operations over 67 TFLOP/s fp32, or for gram 3 x TF32 products
-           over 495 TFLOP/s, a self-Gram counting n(n+1)/2 pairs);
+           operations over 67 TFLOP/s fp32, or for gram and project 3 x TF32
+           products over 495 TFLOP/s, a self-Gram counting n(n+1)/2 pairs);
+           gram and project are also held to fp32 grade (within 2x the plain
+           version's error against float64);
   fit      the paper's Fig. 3/5 configuration: J=20 nodes x N=100 samples x
            M=784, ring(20, hops=2), global centering, 30 ADMM iterations,
            central kPCA on the pooled 2000 x 784; similarity at 1/10/30;
@@ -38,8 +41,9 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            kernels from a torch.profiler trace;
   serve_stream  sustained serving on both models: 4096 requests of 1-256
            rows (log-uniform) in drains of 32, timed and then traced over
-           the whole stream: queries/s, drain latency p50/p99, device time,
-           idle share; every score held against the plain projection.
+           the whole stream: queries/s, drain latency p50/p99, device time
+           (all of it, and the project kernels'), idle share; every score
+           held against the plain projection.
 
 Each path (fit and serve; baselines; top-k) is driven with every kernel's
 launch count zeroed just before it and read just after; a kernel the path
@@ -162,6 +166,27 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def hgmma_by_function(sass: str) -> dict:
+    """wgmma (HGMMA) instructions per kernel function of ``cuobjdump -sass``
+    output, by demangled name where c++filt is at hand."""
+    counts, func = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            func = ln.split("Function : ", 1)[1].strip()
+            counts[func] = 0
+        elif func is not None and "HGMMA" in ln:
+            counts[func] += 1
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(counts),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(counts):
+        names = list(counts)
+    return dict(zip(names, counts.values()))
+
+
 def gram_record(spec, x, g, label, y=None):
     """What ``gram_op`` launches on the card (split passes and the
     tensor-core kernel) for a (Z, n, m) batch x against y (Z, k, m), or
@@ -229,19 +254,36 @@ def project_record(spec, model, xq):
 
     got, want = run(), plain()
     torch.cuda.synchronize()
-    b_ms, b_by = bound(
-        flops=b * l * (2 * m + 4) + 2 * b * l * (c + 1),
-        nbytes=4 * (b * m + l * m + l * (c + 1) + l + b * c + 2 * c))
+    # fp32 grade: the kernel within 2x the plain fp32 version's error, both
+    # against a float64 projection of the same inputs
+    exact = project_reference(spec, *(None if t is None else t.double()
+                                      for t in (xq, model.x_support,
+                                                model.coefs,
+                                                model.row_mean_coef,
+                                                model.bias, model.gamma)))
+    fp64_err = float((got.double() - exact).abs().max())
+    fp64_err_plain = float((want.double() - exact).abs().max())
+    check(fp64_err <= 2.0 * fp64_err_plain,
+          f"project B{b}xL{l}: error against float64 {fp64_err:.3g} > 2 x "
+          f"the plain version's {fp64_err_plain:.3g}")
+    kern = device_kernels(torch, run)
+    nbytes = 4 * (b * m + l * m + l * (c + 1) + l + b * c + 2 * c)
+    # the route taken: 3 TF32 products per fp32 one on the tensor cores
+    b_ms, b_by = bound(flops=3 * 2 * b * l * m, nbytes=nbytes,
+                       peak=PEAK_TF32_FLOPS)
     return dict(
         shape=f"B{b}xL{l}xM{m}xC{c}", **errors(got, want),
+        fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 200),
-        device_ms=device_ms(torch, run, ("project_partials_kernel",
-                                         "project_finalize_kernel")),
+        device_ms=sum(v for key, v in kern.items() if "project_" in key),
+        device_kernels={key[:80]: v for key, v in kern.items()},
         plain_ms=event_ms(torch, plain, 200),
         library_ms=None,
         matmul_ms=event_ms(torch, lambda: torch.matmul(
             xq, model.x_support.T), 200),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=bound(flops=b * l * (2 * m + 4) + 2 * b * l * (c + 1),
+                            nbytes=nbytes)[0])
 
 
 def center_record(k, label):
@@ -533,13 +575,15 @@ def phase_topk(dev, spec, setup, nodes, requests) -> dict:
     return counts
 
 
-def timed_and_traced(torch, fn, calls_by_kernel: bool = False):
+def timed_and_traced(torch, fn, calls_by_kernel: bool = False,
+                     kernels_of: str = ""):
     """One warm run of ``fn``, one on the host clock, then one under
     ``torch.profiler``. Returns (the timed run's result, its wall seconds,
     and the traced run's device time, its count of device calls — kernel
     launches and copies —, the card's idle share of the untraced wall time,
     and the five kernels that took the most device time; with
-    ``calls_by_kernel``, every device kernel's and copy's call count)."""
+    ``calls_by_kernel``, every device kernel's and copy's call count; with
+    ``kernels_of``, the device seconds of the kernels whose name holds it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -563,6 +607,9 @@ def timed_and_traced(torch, fn, calls_by_kernel: bool = False):
         idle_share=1.0 - busy / wall if kernels else None,
         top=[dict(kernel=key[:70], calls=n, ms=us / 1e3)
              for us, key, n in kernels[:5]])
+    if kernels_of:
+        trace[f"{kernels_of}device_s"] = sum(
+            us for us, key, _ in kernels if kernels_of in key) / 1e6
     if calls_by_kernel:
         trace["calls_by_kernel"] = [
             dict(kernel=key[:90], calls=n)
@@ -625,7 +672,8 @@ def phase_serve_stream(dev, models) -> None:
                                                  min_bucket=8), device=dev)
         before = project_tiles.launches
         (scores, drains), wall, trace = timed_and_traced(
-            torch, lambda: drain_stream(engine, requests, STREAM_PER_DRAIN))
+            torch, lambda: drain_stream(engine, requests, STREAM_PER_DRAIN),
+            kernels_of="project_")
         # timed_and_traced drains the stream three times (warm, timed,
         # traced); the launches of one pass
         project_launches = (project_tiles.launches - before) // 3
@@ -696,15 +744,18 @@ def main() -> int:
     _build.load_library()
     usage = [ln.split("info    : ", 1)[-1] for ln in info.log.splitlines()
              if "Used" in ln or "spill" in ln]
-    # the gram kernel must run on the tensor cores: wgmma is HGMMA in SASS
+    # gram and project must run on the tensor cores: wgmma is HGMMA in SASS
     sass = subprocess.run(
         [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
          str(info.path)], capture_output=True, text=True, timeout=120).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    hgmma = hgmma_by_function(sass)
     emit("build", seconds=info.seconds, library=str(info.path.relative_to(
         ROOT)), sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
-        ptxas=usage, hgmma_instructions=hgmma)
-    check(hgmma > 0, "no wgmma (HGMMA) instruction in the built library")
+        ptxas=usage, hgmma_instructions=sum(hgmma.values()),
+        hgmma_by_function=hgmma)
+    for kernel in ("gram_mma_kernel", "project_partials_kernel"):
+        check(any(kernel in f and n > 0 for f, n in hgmma.items()),
+              f"no wgmma (HGMMA) instruction in {kernel}")
 
     from repro_torch.core import (KernelSpec, build_setup, central_kpca,
                                   local_kpca, neighborhood_kpca, oos, ring,
@@ -837,7 +888,8 @@ def main() -> int:
             bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
-            **({"bound_fp32_ms": r["bound_fp32_ms"]} if name == "gram"
+            **({"bound_fp32_ms": r["bound_fp32_ms"],
+                "matmul_ms": r["matmul_ms"]} if name in ("gram", "project")
                else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

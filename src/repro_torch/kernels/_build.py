@@ -40,13 +40,11 @@ SIGNATURES = {
     # tile rows, kind, degree, coef, scale, normalize, stream
     "kpca_gram": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                   _f, _i, _p],
-    # xq, xs, a, ss, gamma, scratch, b, l, m, cp1, tiles_per_chunk,
-    # kind, degree, coef, scale, normalize, stream
-    "kpca_project_partials": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-                              _i, _i, _i, _f, _f, _i, _p],
-    # scratch, cvec, bvec, out, n_chunks, b, cp1, with_epilogue, inv_l,
-    # stream
-    "kpca_project_finalize": [_p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
+    # xq, support hi, support lo, shift (NULL: none), a, ss, gamma,
+    # scratch, cvec, bvec, out, b, l, m, padded m, cp1, feature slices,
+    # with_epilogue, inv_l, kind, degree, coef, scale, normalize, stream
+    "kpca_project": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                     _i, _i, _i, _i, _f, _i, _i, _f, _f, _i, _p],
     # k, scratch, out, z1, z2, n, m, k's strides (s1, s2, sn, sm), rows
     # per slab (0: one launch), slabs, column tiles, vec, stream
     "kpca_center": [_p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i,

@@ -3,9 +3,11 @@
 
 Replaces the TPU kernel ``src/repro/kernels/admm_step/admm_step.py:
 admm_local_update``: one block per node, one launch for all J nodes on
-PyTorch's current stream. The wrapper checks the operands, allocates the
-outputs with ``torch.empty`` and launches; b and g are read through their
-strides.
+PyTorch's current stream. Up to ``STAGED_MAX_N`` a block first copies its
+node's V and K into shared memory (cp.async) and forms rhs while they land;
+past it the block reads them from device memory. The wrapper checks the
+operands, allocates the outputs with ``torch.empty`` and launches; b and g
+are read through their strides.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from .._build import load_library
 from .._util import check_kernel_operand, check_launch, ptr, stream_of
 
-MAX_N = 4096   # kMaxN in csrc/admm_step.cu: 3N floats of shared memory
+MAX_N = 4096          # kMaxN in csrc/admm_step.cu: 3N floats of shared memory
+STAGED_MAX_N = 168    # kStagedMaxN: V and K (2N^2 floats) fit beside them
 
 
 def admm_local_update(v: torch.Tensor, inv_den: torch.Tensor,
@@ -65,4 +68,4 @@ def admm_local_update(v: torch.Tensor, inv_den: torch.Tensor,
 
 admm_local_update.launches = 0
 
-__all__ = ["MAX_N", "admm_local_update"]
+__all__ = ["MAX_N", "STAGED_MAX_N", "admm_local_update"]

@@ -18,8 +18,8 @@ import torch
 
 from ...core.kernels_math import KernelSpec
 from .._util import on_card
-from ..gram.ops import gamma_operand, row_norms
-from .project import project_tiles
+from ..gram.ops import gamma_operand
+from .project import prepare_support, project_tiles
 from .ref import project_partial_reference, project_reference
 
 
@@ -31,8 +31,9 @@ def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
     """The per-model half of ``project_op``, done once: returns a function
     of a (B, M) query batch giving its (B, C) scores. On the card the
     support norms, gamma and the coefficients with their ones column are
-    formed here, so each call is the kernel's two launches and nothing
-    else; on the CPU each call is the plain version."""
+    formed here, with the support as the kernel reads it
+    (``prepare_support``), so each call is the kernel's one C call and
+    nothing else; on the CPU each call is the plain version."""
     l, c = coefs.shape
     if x_support.shape[0] != l:
         raise ValueError(f"project shapes disagree: x_support "
@@ -46,12 +47,14 @@ def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
             row_mean_coef.to(torch.float32)).contiguous()
     bvec = (zeros if bias is None else bias.to(torch.float32)).contiguous()
     xs = x_support.contiguous()
-    ss, g = row_norms(spec, xs), gamma_operand(spec, xs, gamma)
+    support, ss = prepare_support(spec, xs)
+    g = gamma_operand(spec, xs, gamma)
     a_ext = torch.cat([coefs.to(torch.float32),
                        torch.ones((l, 1), dtype=torch.float32, device=dev)],
                       dim=1)
     return lambda xq: project_tiles(spec, xq.contiguous(), xs, a_ext, ss, g,
-                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l)
+                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l,
+                                    support=support)
 
 
 def project_op(spec: KernelSpec, x_query: torch.Tensor,
@@ -80,7 +83,8 @@ def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,
     """Raw per-shard partials K(x_query, x_support) @ coefs_ext, (B, C+1):
     the last column of ``coefs_ext`` is the valid-row indicator, so the last
     output column is the raw kernel row-sum over valid rows. No centering
-    epilogue."""
+    epilogue. On the card the support as the kernel reads it
+    (``prepare_support``) is formed per call."""
     if x_support.shape[0] != coefs_ext.shape[0] or \
             x_query.shape[1] != x_support.shape[1]:
         raise ValueError(f"project shapes disagree: x_query "
@@ -91,9 +95,10 @@ def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,
         return project_partial_reference(spec, x_query, x_support, coefs_ext,
                                          gamma)
     xs = x_support.contiguous()
+    support, ss = prepare_support(spec, xs)
     return project_tiles(spec, x_query.contiguous(), xs,
-                         coefs_ext.to(torch.float32).contiguous(),
-                         row_norms(spec, xs), gamma_operand(spec, xs, gamma))
+                         coefs_ext.to(torch.float32).contiguous(), ss,
+                         gamma_operand(spec, xs, gamma), support=support)
 
 
 __all__ = ["project_op", "project_partial_op", "projector"]

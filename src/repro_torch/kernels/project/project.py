@@ -2,48 +2,105 @@
 (``csrc/project.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/project/project.py:
-project_tiles``. Two launches on PyTorch's current stream: the partials
-kernel (grid = support chunks x 32-query tiles) writes one (B, C+1) partial
-per support chunk into scratch, and the finalize kernel sums the chunks in a
-fixed order and applies the centering epilogue (or returns the raw partial
-sums). The chunking depends on L alone, so a query's scores do not depend
-on how many other queries share its batch.
+project_tiles``. One C call, three launches on PyTorch's current stream: a
+split pass shifts the queries and writes their 3xTF32 halves and norms; the
+tensor-core partials kernel (``wgmma``; grid = 64-row support tiles x
+feature slices, one thread-block cluster per tile, x query groups) writes
+one (B, C+1) partial per support tile into scratch; the finalize kernel
+sums the tiles in a fixed order and applies the centering epilogue (or
+returns the raw partial sums). The support set's halves are formed once per
+model by ``projector`` (``prepare_support``: for rbf, shifted by the
+support's mean row). The tiling and the feature slices depend on L alone,
+so a query's scores do not depend on how many other queries share its
+batch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ...core.kernels_math import KernelSpec
 from .._build import load_library
-from .._util import cdiv, check_kernel_operand, check_launch, ptr, stream_of
-from ..gram.gram import KINDS
+from .._util import (SMS, cdiv, check_kernel_operand, check_launch, ptr,
+                     stream_of)
+from ..gram.gram import KINDS, padded_stride
+from ..gram.ops import row_norms
 
-SUPPORT_TILE = 32      # kPL in csrc/project.cu
-MAX_CHUNKS = 64        # support chunks aimed for; tiles per chunk follow
+SUPPORT_TILE = 64      # kRows in csrc/project.cu: wgmma's M
+MAX_SLICES = 8         # feature slices per support tile: a portable cluster
 CP1_MAX = 32           # kCp1Max in csrc/project.cu: C + 1 <= 32
 
 
 def support_chunking(n_support: int) -> tuple:
-    """(tiles_per_chunk, n_chunks) for L support rows — a function of L
-    only, which keeps each query's summation order batch-independent."""
-    n_tiles = cdiv(n_support, SUPPORT_TILE)
-    per = max(1, cdiv(n_tiles, MAX_CHUNKS))
-    return per, cdiv(n_tiles, per)
+    """(support tiles, feature slices) for L support rows: 64-row tiles, and
+    the largest of 1, 2, 4, 8 slices that keeps tiles x slices within half
+    a wave of the card's SMs (at L2000, 2 slices ran B >= 64 faster than a
+    full wave's 4 and B8 about as fast) — a function of L only, which keeps
+    each query's summation order batch-independent."""
+    tiles = cdiv(n_support, SUPPORT_TILE)
+    slices = 1
+    while slices < MAX_SLICES and tiles * slices * 2 <= SMS // 2:
+        slices *= 2
+    return tiles, slices
+
+
+class Support(NamedTuple):
+    """A support set as the kernel reads it: the ``split_tf32`` halves of
+    its rows less ``shift`` (a (M,) row, or None for no shift)."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    shift: Optional[torch.Tensor]
+
+
+def prepare_support(spec: KernelSpec, xs: torch.Tensor):
+    """The per-model half of the kernel's operands: (Support, ss), ss the
+    norms (rbf) or self-kernels of the rows the kernel multiplies. For rbf
+    the rows are first shifted by the support's mean row, and the kernel
+    shifts each query by it too: distances do not change, but the dot
+    products and norms whose difference forms them shrink, and with them
+    the fp32 rounding that the difference amplifies."""
+    shift = xs.mean(dim=0) if spec.kind == "rbf" else None
+    rows = xs if shift is None else xs - shift
+    return Support(*split_tf32(rows), shift), row_norms(spec, rows)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a (L, M) fp32 operand for the 3xTF32 products: hi =
+    rna(x), lo = rna(x - hi), each rounded to TF32 to nearest with ties away
+    from zero (what ``cvt.rna.tf32.f32`` does, here by bit masking), at a
+    row stride padded to a multiple of 32 floats with zeros."""
+    l, m = x.shape
+    mp = padded_stride(m)
+    xp = torch.zeros((l, mp), dtype=torch.float32, device=x.device)
+    xp[:, :m] = x
+    hi = _tf32_rna(xp)
+    return hi, _tf32_rna(xp - hi)
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def project_tiles(spec: KernelSpec, xq: torch.Tensor, xs: torch.Tensor,
                   a_ext: torch.Tensor, ss: torch.Tensor,
                   gamma: torch.Tensor, cvec=None, bvec=None,
-                  inv_l: float = 0.0) -> torch.Tensor:
+                  inv_l: float = 0.0, support: Optional[Support] = None
+                  ) -> torch.Tensor:
     """Fused projection on the card.
 
     xq (B, M) queries; xs (L, M) support; a_ext (L, C+1) coefficients whose
     last column is the ones/indicator column; ss (L,) the support rows'
     squared norms (rbf) or self-kernels (the kernel computes the queries'
-    itself, in a batch-independent order); gamma 0-d. With ``cvec``/``bvec``
-    (C,) the result is (B, C) scores ``P[:, :C] + P[:, C] * inv_l * cvec +
-    bvec``; without them it is the raw (B, C+1) partial ``K @ a_ext``.
+    itself, in a batch-independent order); gamma 0-d; ``support`` the
+    support as the kernel reads it where the caller keeps one
+    (``prepare_support``; ss must then be the norms it returned), else
+    xs is split here, unshifted. With ``cvec``/``bvec`` (C,) the result is
+    (B, C) scores ``P[:, :C] + P[:, C] * inv_l * cvec + bvec``; without
+    them it is the raw (B, C+1) partial ``K @ a_ext``.
     """
     dev = xq.device
     for name, t, nd in (("xq", xq, 2), ("xs", xs, 2), ("a_ext", a_ext, 2),
@@ -70,27 +127,40 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, xs: torch.Tensor,
             if t.shape != (cp1 - 1,):
                 raise ValueError(f"{name} must be ({cp1 - 1},), got "
                                  f"{tuple(t.shape)}")
-    per, n_chunks = support_chunking(l)
+    mp = padded_stride(m)
+    if support is None:
+        support = Support(*split_tf32(xs), None)
+    for name, t in (("support.hi", support.hi), ("support.lo", support.lo)):
+        check_kernel_operand(name, t, 2, dev)
+        if t.shape != (l, mp):
+            raise ValueError(f"{name} must be ({l}, {mp}), got "
+                             f"{tuple(t.shape)}")
+    if support.shift is not None:
+        check_kernel_operand("support.shift", support.shift, 1, dev)
+        if support.shift.shape != (m,):
+            raise ValueError(f"support.shift must be ({m},), got "
+                             f"{tuple(support.shift.shape)}")
+    tiles, slices = support_chunking(l)
     lib = load_library()
-    scratch = torch.empty((n_chunks, b, cp1), dtype=torch.float32, device=dev)
+    # the queries' TF32 halves and norms, then the support tiles' partials
+    scratch = torch.empty((b * (2 * mp + 1) + tiles * b * cp1,),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((b, cp1 - 1 if with_epilogue else cp1),
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = stream_of(dev)
-        rc = lib.kpca_project_partials(
-            ptr(xq), ptr(xs), ptr(a_ext), ptr(ss), ptr(gamma),
-            ptr(scratch), b, l, m, cp1, per, KINDS[spec.kind],
+        rc = lib.kpca_project(
+            ptr(xq), ptr(support.hi), ptr(support.lo), ptr(support.shift),
+            ptr(a_ext), ptr(ss), ptr(gamma),
+            ptr(scratch), ptr(cvec), ptr(bvec), ptr(out), b, l, m, mp, cp1,
+            slices, int(with_epilogue), float(inv_l), KINDS[spec.kind],
             int(spec.degree), float(spec.coef), float(spec.scale),
-            int(bool(spec.normalize)), stream)
-        check_launch("project partials", rc)
-        rc = lib.kpca_project_finalize(
-            ptr(scratch), ptr(cvec), ptr(bvec), ptr(out), n_chunks, b, cp1,
-            int(with_epilogue), float(inv_l), stream)
-    check_launch("project finalize", rc)
+            int(bool(spec.normalize)), stream_of(dev))
+    check_launch("project", rc)
     project_tiles.launches += 1
     return out
 
 
 project_tiles.launches = 0
 
-__all__ = ["CP1_MAX", "project_tiles", "support_chunking"]
+__all__ = ["CP1_MAX", "Support", "prepare_support", "project_tiles",
+           "split_tf32", "support_chunking"]

@@ -172,6 +172,56 @@ def test_project_rows_do_not_depend_on_batching(cuda):
     assert torch.equal(full[:8], head)
 
 
+@pytest.mark.parametrize("b", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("l", [500, 2000])
+def test_project_kernel_at_engine_buckets(cuda, b, l):
+    """Every pow2 slab the engine sends against both served support sizes
+    (8 and 4 feature slices): against the plain version, and each row
+    bit-identical to projecting it alone."""
+    spec = KernelSpec(kind="rbf", gamma=0.05)
+    xs = _rand((l, 784), l, cuda, 0.05)
+    coefs = _rand((l, 2), 3, cuda, 1.0 / np.sqrt(l))
+    rmc, bias = _rand((2,), 4, cuda), _rand((2,), 5, cuda)
+    xq = _rand((b, 784), b, cuda, 0.05)
+    got = project_op(spec, xq, xs, coefs, rmc, bias)
+    want = project_reference(spec, xq, xs, coefs, rmc, bias)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    last = xq[b - 1:].contiguous()
+    assert torch.equal(got[b - 1:], project_op(spec, last, xs, coefs, rmc,
+                                               bias))
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+def test_project_kernel_is_fp32_grade(cuda, kind):
+    """3xTF32 keeps fp32's accuracy at the largest served slab (B128 x
+    L2000 x M784): against a float64 projection on the card, the kernel's
+    largest error is at most twice the plain fp32 version's."""
+    spec = SPECS[kind]
+    xq = _rand((128, 784), 1, cuda, 1.0 / np.sqrt(784))
+    xs = _rand((2000, 784), 2, cuda, 1.0 / np.sqrt(784))
+    coefs = _rand((2000, 1), 3, cuda, 1.0 / np.sqrt(2000))
+    rmc, bias = _rand((1,), 4, cuda), _rand((1,), 5, cuda)
+    ops = (xq, xs, coefs, rmc, bias)
+    got = project_op(spec, *ops)
+    plain = project_reference(spec, *ops)
+    exact = project_reference(spec, *(t.double() for t in ops))
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
+
+
+@pytest.mark.parametrize("b,l", [(8, 500), (128, 2000), (200, 77)])
+def test_project_kernel_same_bits_every_call(cuda, b, l):
+    """No atomics: the same call gives the same bits every time."""
+    spec = KernelSpec(kind="rbf", gamma=0.05)
+    xs = _rand((l, 784), 1, cuda, 0.05)
+    coefs = _rand((l, 1), 2, cuda, 0.02)
+    xq = _rand((b, 784), 3, cuda, 0.05)
+    first = project_op(spec, xq, xs, coefs)
+    for _ in range(3):
+        assert torch.equal(project_op(spec, xq, xs, coefs), first)
+
+
 def test_project_kernel_rejects_too_many_components(cuda):
     spec = KernelSpec(kind="rbf", gamma=0.1)
     with pytest.raises(ValueError, match="at most"):
@@ -399,6 +449,30 @@ def test_admm_kernel_matches_plain(cuda, j, n, s):
     torch.cuda.synchronize()
     for name, g_t, w_t in zip(("alpha", "b_new", "ka"), got, want):
         torch.testing.assert_close(g_t, w_t, rtol=2e-4, atol=2e-4, msg=name)
+
+
+@pytest.mark.parametrize("n", [168, 169])
+def test_admm_kernel_at_the_staged_limit(cuda, n):
+    """The largest N whose V and K are staged in shared memory, and the
+    first that reads them from device memory."""
+    from repro_torch.kernels.admm_step.admm_step import STAGED_MAX_N
+    assert STAGED_MAX_N == 168
+    ins = _admm_inputs(3, n, 5, cuda)
+    got = admm_local_update_op(*ins)
+    want = admm_local_update_reference(*ins)
+    torch.cuda.synchronize()
+    for name, g_t, w_t in zip(("alpha", "b_new", "ka"), got, want):
+        torch.testing.assert_close(g_t, w_t, rtol=2e-4, atol=2e-4, msg=name)
+
+
+@pytest.mark.parametrize("j,n,s", [(20, 100, 5), (2, 300, 5)])
+def test_admm_kernel_same_bits_every_call(cuda, j, n, s):
+    """No atomics, on either path: the same call gives the same bits."""
+    ins = _admm_inputs(j, n, s, cuda, seed=4)
+    first = admm_local_update_op(*ins)
+    for _ in range(3):
+        for g_t, w_t in zip(admm_local_update_op(*ins), first):
+            assert torch.equal(g_t, w_t)
 
 
 def test_admm_kernel_reads_strided_b_and_g(cuda):

@@ -25,7 +25,9 @@ from repro_torch.kernels import (admm_local_update, admm_local_update_op,
                                  center_op, center_reference, center_tiles,
                                  gram_op, gram_tiles, project_op,
                                  project_partial_op, project_tiles)
-from repro_torch.kernels.project.project import support_chunking
+from repro_torch.kernels.project.project import (prepare_support,
+                                                  split_tf32,
+                                                  support_chunking)
 
 SPEC_KW = {
     "rbf": dict(kind="rbf", gamma=0.3),
@@ -193,9 +195,13 @@ def _gram_3xtf32(spec, x, y):
     """The gram kernel's arithmetic in plain PyTorch: the dot products
     from the 3xTF32 split (lo.hi + hi.lo + hi.hi), the epilogue on the fp32
     row norms."""
-    from repro_torch.core.kernels_math import _self_k
     (xh, xl), (yh, yl) = _split_3xtf32(x), _split_3xtf32(y)
-    dot = xl @ yh.T + xh @ yl.T + xh @ yh.T
+    return _epilogue(spec, xl @ yh.T + xh @ yl.T + xh @ yh.T, x, y)
+
+
+def _epilogue(spec, dot, x, y):
+    """The kernels' epilogue on the dot products of x against y."""
+    from repro_torch.core.kernels_math import _self_k
     if spec.kind == "rbf":
         d2 = (torch.sum(x * x, -1)[:, None] + torch.sum(y * y, -1)[None, :]
               - 2.0 * dot)
@@ -233,6 +239,70 @@ def test_gram_3xtf32_emulation_matches_jax(kind, n, k, m):
     got = _gram_3xtf32(KernelSpec(**SPEC_KW[kind]), torch.as_tensor(x),
                        torch.as_tensor(y)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("m", [3, 24, 40, 784])
+def test_project_support_split_is_padded_3xtf32(m):
+    """``split_tf32`` (the projector's per-model support halves) is the
+    bit-masked 3xTF32 split at a row stride padded to 32 floats with
+    zeros."""
+    x = torch.as_tensor(_rand((70, m), m))
+    hi, lo = split_tf32(x)
+    mp = -(-m // 32) * 32
+    assert hi.shape == lo.shape == (70, mp)
+    want_hi, want_lo = _split_3xtf32(x)
+    assert torch.equal(hi[:, :m], want_hi) and torch.equal(lo[:, :m], want_lo)
+    assert not hi[:, m:].any() and not lo[:, m:].any()
+
+
+def _project_3xtf32(spec, xq, xs, coefs, rmc, bias):
+    """The project kernel's arithmetic in plain PyTorch: both sides shifted
+    by the support's mean row (rbf), 3xTF32 dot products per 32-feature
+    stage, summed per feature slice and the slices in order; the epilogue;
+    64-row support tiles' partials summed in tile order; the centering
+    terms."""
+    tiles, slices = support_chunking(xs.shape[0])
+    (sh, sl, shift), _ = prepare_support(spec, xs)
+    if shift is not None:
+        xq, xs = xq - shift, xs - shift
+    qh, ql = split_tf32(xq)
+    kt = sh.shape[1] // 32
+    dot = torch.zeros((xs.shape[0], xq.shape[0]))
+    for r in range(slices):
+        part = torch.zeros_like(dot)
+        for k in range(r * kt // slices, (r + 1) * kt // slices):
+            f = slice(32 * k, 32 * k + 32)
+            part = part + (sl[:, f] @ qh[:, f].T + sh[:, f] @ ql[:, f].T
+                           + sh[:, f] @ qh[:, f].T)
+        dot = dot + part
+    kmat = _epilogue(spec, dot.T, xq, xs)
+    a_ext = torch.cat([coefs, torch.ones((xs.shape[0], 1))], dim=1)
+    p = torch.zeros((xq.shape[0], a_ext.shape[1]))
+    for t in range(tiles):
+        rows = slice(64 * t, 64 * t + 64)
+        p = p + kmat[:, rows] @ a_ext[rows]
+    c = coefs.shape[1]
+    return p[:, :c] + p[:, c:] / xs.shape[0] * rmc + bias
+
+
+@pytest.mark.parametrize("kind", sorted(SPEC_KW))
+@pytest.mark.parametrize("b,l,m,c", [(1, 5, 3, 1), (13, 40, 24, 2),
+                                     (8, 130, 300, 1), (33, 500, 784, 1)])
+def test_project_3xtf32_emulation_matches_jax(kind, b, l, m, c):
+    """``test_project_op_matches_jax``'s inputs (and the main path's
+    L500 x M784) through the project kernel's tiling, feature slices and
+    3xTF32 arithmetic, at the JAX package's tolerance."""
+    xq = _rand((b, m), b + m, 1 / np.sqrt(m))
+    xs = _rand((l, m), l + m, 1 / np.sqrt(m))
+    coefs = _rand((l, c), 3, 1 / np.sqrt(l))
+    rmc, bias = _rand((c,), 4), _rand((c,), 5)
+    want = np.asarray(j_project_op(
+        JKernelSpec(**SPEC_KW[kind]), jnp.asarray(xq), jnp.asarray(xs),
+        jnp.asarray(coefs), jnp.asarray(rmc), jnp.asarray(bias),
+        interpret=True))
+    got = _project_3xtf32(KernelSpec(**SPEC_KW[kind]), *map(
+        torch.as_tensor, (xq, xs, coefs, rmc, bias))).numpy()
+    np.testing.assert_allclose(got, want, rtol=_tol(m), atol=_tol(m))
 
 
 @pytest.mark.parametrize("m,want", [(1, 32), (5, 32), (31, 32), (32, 32),
@@ -373,8 +443,8 @@ def test_mixed_devices_raise():
         on_card(torch.rand(2), torch.rand(2, device="meta"))
 
 
-@pytest.mark.parametrize("l,want", [(1, (1, 1)), (500, (1, 16)),
-                                    (2000, (1, 63)), (2048, (1, 64)),
-                                    (5000, (3, 53))])
+@pytest.mark.parametrize("l,want", [(1, (1, 8)), (500, (8, 8)),
+                                    (2000, (32, 2)), (2048, (32, 2)),
+                                    (5000, (79, 1))])
 def test_support_chunking_depends_on_l_only(l, want):
     assert support_chunking(l) == want
