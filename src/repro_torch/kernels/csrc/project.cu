@@ -17,7 +17,7 @@
 // dominate, and in practice the latency of a short dependent chain.
 //
 // What the design does about it, in three launches from one C call:
-//  1. project_split_kernel, one warp per query: the query less the shift
+//  1. project_split_kernel, one block per query: the query less the shift
 //     row, split into its TF32 halves hi = rna(x), lo = rna(x - hi) at a row
 //     stride padded to 32 floats, and its squared norm (or self-kernel) in a
 //     fixed order. The support set was split the same way once per model
@@ -41,12 +41,13 @@
 //     (project.py:support_chunking): with T = ceil(L / 64) support tiles, the
 //     largest of 1, 2, 4, 8 with T * KS <= 66, half the SMs. Grid = (T * KS,
 //     ceil(B / (32 NQ))): L500 -> 8 x 8 = 64 blocks, L2000 -> 32 x 2 = 64
-//     blocks, at every B <= 128. The KS blocks of a tile form a thread-block cluster;
-//     each finishes 32 NQ / KS of the query columns. Every block stores its
-//     partial dot products of a column straight into the shared memory of
-//     the block that finishes it (distributed shared memory, no wait); after
-//     a cluster barrier the partials are summed in rank order, then the
-//     kernel epilogue (kpca::Epilogue), then the (64 x C+1) product with A.
+//     blocks, at every B <= 128. The KS blocks of a tile form a thread-block
+//     cluster; each finishes 32 NQ / KS of the query columns. Every block
+//     stores its partial dot products of a column straight into the shared
+//     memory of the block that finishes it (distributed shared memory, no
+//     wait); after a cluster barrier the partials are summed in rank order,
+//     then the kernel epilogue (kpca::Epilogue), then the (64 x C+1) product
+//     with A.
 //     The tile's (B, C+1) partial goes to scratch.
 //  3. project_finalize_kernel sums the tiles' partials in tile order and
 //     applies the centering epilogue.
@@ -101,23 +102,25 @@ struct Maps {
   CUtensorMap sh, sl, qh, ql;
 };
 
-// One warp per query row: the row less the shift (NULL: none), its TF32
-// halves at row stride mp with zero fill, and its squared norm (rbf) or
-// self-kernel, summed lane-strided and then by a shuffle tree.
-__global__ void __launch_bounds__(256)
+// One block of kSplitThreads per query row: the row less the shift (NULL:
+// none), its TF32 halves at row stride mp with zero fill, and its squared
+// norm (rbf) or self-kernel, summed thread-strided, then by a shuffle tree
+// per warp and the warps in order.
+constexpr int kSplitThreads = 256;
+
+__global__ void __launch_bounds__(kSplitThreads)
 project_split_kernel(const float* __restrict__ x,
                      const float* __restrict__ shift, float* __restrict__ hi,
-                     float* __restrict__ lo, float* __restrict__ norms,
-                     int rows, int m, int mp, kpca::Epilogue ep) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  if (row >= rows) return;
+                     float* __restrict__ lo, float* __restrict__ norms, int m,
+                     int mp, kpca::Epilogue ep) {
+  __shared__ float warp_ss[kSplitThreads / 32];
+  const int row = blockIdx.x, tid = threadIdx.x;
   const float* xr = x + (size_t)row * m;
   float* hr = hi + (size_t)row * mp;
   float* lr = lo + (size_t)row * mp;
   float ss = 0.0f;
-#pragma unroll 8
-  for (int c = lane; c < mp; c += 32) {
+#pragma unroll 4
+  for (int c = tid; c < mp; c += kSplitThreads) {
     const float v = c < m ? xr[c] - (shift ? shift[c] : 0.0f) : 0.0f;
     const float h = tf32_rna(v);
     hr[c] = h;
@@ -127,7 +130,13 @@ project_split_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (lane == 0) norms[row] = ep.self_k(ss);
+  if (tid % 32 == 0) warp_ss[tid / 32] = ss;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < kSplitThreads / 32; ++w) total += warp_ss[w];
+    norms[row] = ep.self_k(total);
+  }
 }
 
 // KS feature slices per support tile (the cluster), NQ query tiles per
@@ -418,8 +427,8 @@ extern "C" int kpca_project(const float* xq, const float* sh, const float* sl,
     return (int)cudaErrorInvalidValue;
   kpca::Epilogue ep{kind, degree, coef, scale, normalize};
   cudaStream_t s = (cudaStream_t)stream;
-  project_split_kernel<<<(b + 7) / 8, 256, 0, s>>>(xq, shift, qh, ql, sq, b,
-                                                    m, mp, ep);
+  project_split_kernel<<<b, kSplitThreads, 0, s>>>(xq, shift, qh, ql, sq, m,
+                                                    mp, ep);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // query tiles per block: up to four, as many as the batch fills
