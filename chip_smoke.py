@@ -71,6 +71,7 @@ PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12       # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 TOL = 2e-4                     # kernel vs plain and engine vs plain
+SPLIT_KERNEL = "tf32_split_kernel"   # the 3xTF32 split gram, project share
 TOLERANCE = ("|kernel - plain| <= 2e-4 * max(1, |plain|): absolute for the "
              "kernel values and scores (all below 1 here), relative for the "
              "raw kernel row-sums of project_partial_op (several hundred "
@@ -224,7 +225,8 @@ def gram_record(spec, x, g, label, y=None):
         shape=label, **errors(got, want),
         fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 20),
-        device_ms=sum(v for key, v in kern.items() if "gram_" in key),
+        device_ms=sum(v for key, v in kern.items()
+                      if "gram_" in key or SPLIT_KERNEL in key),
         device_kernels={key[:80]: v for key, v in kern.items()},
         plain_ms=event_ms(torch, lambda: gram_reference(spec, x, y, gamma=g),
                           20),
@@ -275,7 +277,8 @@ def project_record(spec, model, xq):
         shape=f"B{b}xL{l}xM{m}xC{c}", **errors(got, want),
         fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 200),
-        device_ms=sum(v for key, v in kern.items() if "project_" in key),
+        device_ms=sum(v for key, v in kern.items()
+                      if "project_" in key or SPLIT_KERNEL in key),
         device_kernels={key[:80]: v for key, v in kern.items()},
         plain_ms=event_ms(torch, plain, 200),
         library_ms=None,
@@ -576,14 +579,15 @@ def phase_topk(dev, spec, setup, nodes, requests) -> dict:
 
 
 def timed_and_traced(torch, fn, calls_by_kernel: bool = False,
-                     kernels_of: str = ""):
+                     kernels_of: tuple = ()):
     """One warm run of ``fn``, one on the host clock, then one under
     ``torch.profiler``. Returns (the timed run's result, its wall seconds,
     and the traced run's device time, its count of device calls — kernel
     launches and copies —, the card's idle share of the untraced wall time,
     and the five kernels that took the most device time; with
     ``calls_by_kernel``, every device kernel's and copy's call count; with
-    ``kernels_of``, the device seconds of the kernels whose name holds it)."""
+    ``kernels_of``, the device seconds of the kernels whose name holds one
+    of its strings, under the first one's name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -608,8 +612,9 @@ def timed_and_traced(torch, fn, calls_by_kernel: bool = False,
         top=[dict(kernel=key[:70], calls=n, ms=us / 1e3)
              for us, key, n in kernels[:5]])
     if kernels_of:
-        trace[f"{kernels_of}device_s"] = sum(
-            us for us, key, _ in kernels if kernels_of in key) / 1e6
+        trace[f"{kernels_of[0]}device_s"] = sum(
+            us for us, key, _ in kernels
+            if any(k in key for k in kernels_of)) / 1e6
     if calls_by_kernel:
         trace["calls_by_kernel"] = [
             dict(kernel=key[:90], calls=n)
@@ -673,7 +678,7 @@ def phase_serve_stream(dev, models) -> None:
         before = project_tiles.launches
         (scores, drains), wall, trace = timed_and_traced(
             torch, lambda: drain_stream(engine, requests, STREAM_PER_DRAIN),
-            kernels_of="project_")
+            kernels_of=("project_", SPLIT_KERNEL))
         # timed_and_traced drains the stream three times (warm, timed,
         # traced); the launches of one pass
         project_launches = (project_tiles.launches - before) // 3

@@ -45,6 +45,10 @@ SIGNATURES = {
     # with_epilogue, inv_l, kind, degree, coef, scale, normalize, stream
     "kpca_project": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                      _i, _i, _i, _i, _f, _i, _i, _f, _f, _i, _p],
+    # support rows, shift (NULL: none), hi, lo, norms, l, m, padded m,
+    # kind, degree, coef, scale, normalize, stream
+    "kpca_project_support": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _f,
+                             _i, _p],
     # k, scratch, out, z1, z2, n, m, k's strides (s1, s2, sn, sm), rows
     # per slab (0: one launch), slabs, column tiles, vec, stream
     "kpca_center": [_p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i,

@@ -37,6 +37,10 @@
 // in the same order on both paths. B and G are read through their strides,
 // so the solver's transposed G view needs no copy; everything else is
 // contiguous.
+//
+// scripts/project_ablate.py times copies of this file edited by exact text:
+// the kThreads line and the `staged` line of kpca_admm_step. A change to
+// either line goes into its VARIANTS too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -14,10 +14,11 @@
 // three tensor-core products for one fp32 one, still 2.5x the fp32 peak.
 //
 // Two launches per Gram:
-//  1. gram_split_kernel, one warp per row: reads the operand once, writes hi
-//     and lo at a row stride padded to 32 floats with zero fill (128-byte
-//     rows, whole K-tiles, TMA-aligned) and the row's squared norm (rbf) or
-//     self-kernel (linear/poly). y = x is split once.
+//  1. the split pass (hopper.cuh: tf32_split_kernel), one warp per row:
+//     reads the operand once, writes hi and lo at a row stride padded to 32
+//     floats with zero fill (128-byte rows, whole K-tiles, TMA-aligned) and
+//     the row's squared norm (rbf) or self-kernel (linear/poly). y = x is
+//     split once.
 //  2. gram_mma_kernel: a BM x 128 output tile per block (BM = 128: two
 //     consumer warpgroups; BM = 64, for grids under one wave: one). One
 //     producer warp streams 32-float-deep K-tiles of hi and lo of both
@@ -45,8 +46,6 @@
 namespace {
 
 constexpr int kBN = 128;                 // output tile columns (y rows)
-constexpr int kBK = 32;                  // floats per K-tile: one 128-B row
-constexpr int kRowPad = 32;              // padded row stride multiple
 constexpr int kEpiStride = kBN + 1;      // shared copy of the finished tile
 
 template <int BM>
@@ -54,38 +53,13 @@ struct Cfg {
   static constexpr int kConsumers = BM / 64;             // warpgroups
   static constexpr int kThreads = kConsumers * 128 + 32;  // + producer warp
   static constexpr int kStages = BM == 128 ? 3 : 4;
-  static constexpr int kXBytes = BM * kBK * 4;            // one x tile
-  static constexpr int kYBytes = kBN * kBK * 4;           // one y tile
+  static constexpr int kXBytes = BM * kTileK * 4;         // one x tile
+  static constexpr int kYBytes = kBN * kTileK * 4;        // one y tile
   static constexpr int kStageBytes = 2 * kXBytes + 2 * kYBytes;
   static constexpr int kRingBytes = kStages * kStageBytes;
   static constexpr int kSmemBytes = 1024 + kRingBytes + 2 * kStages * 8;
   static_assert(BM * kEpiStride * 4 <= kRingBytes, "epilogue copy");
 };
-
-// One warp per row of the flat (rows, m) operand.
-__global__ void __launch_bounds__(256)
-gram_split_kernel(const float* __restrict__ x, float* __restrict__ hi,
-                  float* __restrict__ lo, float* __restrict__ norms, int rows,
-                  int m, int mp, kpca::Epilogue ep) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  if (row >= rows) return;
-  const float* xr = x + (size_t)row * m;
-  float* hr = hi + (size_t)row * mp;
-  float* lr = lo + (size_t)row * mp;
-  float ss = 0.0f;
-  for (int c = lane; c < mp; c += 32) {
-    const float v = c < m ? xr[c] : 0.0f;
-    const float h = tf32_rna(v);
-    hr[c] = h;
-    lr[c] = tf32_rna(v - h);
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (lane == 0) norms[row] = ep.self_k(ss);
-}
 
 struct Maps {
   CUtensorMap xh, xl, yh, yl;
@@ -124,7 +98,7 @@ gram_mma_kernel(const __grid_constant__ Maps maps,
     bj = blockIdx.x % ntc;
   }
   const int row0 = bi * BM, col0 = bj * kBN;
-  const int kt = mp / kBK;
+  const int kt = mp / kTileK;
   const int tid = threadIdx.x;
   constexpr int kConsumerThreads = C::kConsumers * 128;
 
@@ -146,7 +120,7 @@ gram_mma_kernel(const __grid_constant__ Maps maps,
         const uint32_t full = full0 + 8 * s;
         const uint32_t st = ring + s * C::kStageBytes;
         mbar_expect_tx(full, C::kStageBytes);
-        const int c0 = it * kBK;
+        const int c0 = it * kTileK;
         tma_load_3d(st, &maps.xh, full, c0, row0, z);
         tma_load_3d(st + C::kXBytes, &maps.xl, full, c0, row0, z);
         tma_load_3d(st + 2 * C::kXBytes, &maps.yh, full, c0, col0, z);
@@ -166,14 +140,14 @@ gram_mma_kernel(const __grid_constant__ Maps maps,
     const int s = it % C::kStages;
     mbar_wait(full0 + 8 * s, (it / C::kStages) & 1);
     const uint32_t st = ring + s * C::kStageBytes;
-    const uint64_t xh = sw128_desc(st + wg * 64 * kBK * 4);
-    const uint64_t xl = sw128_desc(st + C::kXBytes + wg * 64 * kBK * 4);
+    const uint64_t xh = sw128_desc(st + wg * 64 * kTileK * 4);
+    const uint64_t xl = sw128_desc(st + C::kXBytes + wg * 64 * kTileK * 4);
     const uint64_t yh = sw128_desc(st + 2 * C::kXBytes);
     const uint64_t yl = sw128_desc(st + 2 * C::kXBytes + C::kYBytes);
     fence_acc(part);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
+    for (int kk = 0; kk < kTileK / 8; ++kk) {
       wgmma_tf32(part, xl + 2 * kk, yh + 2 * kk, kk > 0);
       wgmma_tf32(part, xh + 2 * kk, yl + 2 * kk, 1);
       wgmma_tf32(part, xh + 2 * kk, yh + 2 * kk, 1);
@@ -266,7 +240,7 @@ extern "C" int kpca_gram(const float* x, const float* y, float* scratch,
                          void* stream) {
   const int symmetric = y == nullptr;
   if (symmetric) k = n;
-  if (batch < 1 || n < 1 || k < 1 || m < 1 || mp < m || mp % kRowPad != 0 ||
+  if (batch < 1 || n < 1 || k < 1 || m < 1 || mp < m || mp % kTileK != 0 ||
       batch > 65535 || (bm != 64 && bm != 128) || (symmetric && bm != 128))
     return (int)cudaErrorInvalidValue;
   const size_t xs = (size_t)batch * n * mp, ys = (size_t)batch * k * mp;
@@ -278,12 +252,10 @@ extern "C" int kpca_gram(const float* x, const float* y, float* scratch,
   float* sy = symmetric ? sx : sx + (size_t)batch * n;
   cudaStream_t s = (cudaStream_t)stream;
   kpca::Epilogue ep{kind, degree, coef, scale, normalize};
-  gram_split_kernel<<<(batch * n + 7) / 8, 256, 0, s>>>(x, xh, xl, sx,
-                                                        batch * n, m, mp, ep);
-  if (!symmetric)
-    gram_split_kernel<<<(batch * k + 7) / 8, 256, 0, s>>>(y, yh, yl, sy,
-                                                          batch * k, m, mp, ep);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      tf32_split<32>(x, nullptr, xh, xl, sx, batch * n, m, mp, ep, s);
+  if (e == cudaSuccess && !symmetric)
+    e = tf32_split<32>(y, nullptr, yh, yl, sy, batch * k, m, mp, ep, s);
   if (e != cudaSuccess) return (int)e;
   Maps maps;
   if (!encode(&maps.xh, xh, batch, n, mp, bm) ||

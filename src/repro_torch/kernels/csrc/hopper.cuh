@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (csrc/gram.cu,
-// csrc/project.cu): shared-memory addresses, the 3xTF32 split's rounding,
-// mbarriers, TMA tile loads and their tensor maps, the 128-byte-swizzle
+// csrc/project.cu): shared-memory addresses, the 3xTF32 split pass that
+// writes both kernels' operands, mbarriers, TMA tile loads and their tensor maps, the 128-byte-swizzle
 // wgmma descriptor, and wgmma.mma_async .tf32 at the two N widths the
 // kernels use (m64n128k8 for gram, m64n32k8 for project). Everything here
 // is for sm_90a; the definitions sit in an anonymous namespace, one copy
@@ -10,6 +10,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -24,6 +26,69 @@ __device__ __forceinline__ float tf32_rna(float v) {
   uint32_t u;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
   return __uint_as_float(u);
+}
+
+// The 3xTF32 operand format that the tensor-core kernels read through TMA:
+// each row of a (rows, m) fp32 operand, less a shift row (NULL: none), as
+// hi = rna(v) and lo = rna(v - hi) at a row stride mp padded to whole
+// K-tiles with zeros (128-byte rows), and the row's squared norm (rbf) or
+// self-kernel (linear/poly) for the epilogue. TPR threads take a row: 32
+// (one warp, eight rows per block; gram's many rows) or kSplitThreads (one
+// block per row; project's short query batches and its support set). A
+// row's norm is summed thread-strided, then by a shuffle tree per warp,
+// then the warps in order: an order fixed by mp and TPR alone.
+constexpr int kSplitThreads = 256;
+
+template <int TPR>
+__global__ void __launch_bounds__(kSplitThreads)
+tf32_split_kernel(const float* __restrict__ x,
+                  const float* __restrict__ shift, float* __restrict__ hi,
+                  float* __restrict__ lo, float* __restrict__ norms, int rows,
+                  int m, int mp, kpca::Epilogue ep) {
+  static_assert(TPR == 32 || TPR == kSplitThreads, "a warp or a block a row");
+  constexpr int kWarps = TPR / 32;
+  const int t = threadIdx.x % TPR, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kSplitThreads / TPR) + threadIdx.x / TPR;
+  if (row >= rows) return;   // whole warps; with a block a row, never
+  const float* xr = x + (size_t)row * m;
+  float* hr = hi + (size_t)row * mp;
+  float* lr = lo + (size_t)row * mp;
+  float ss = 0.0f;
+#pragma unroll 4
+  for (int c = t; c < mp; c += TPR) {
+    const float v = c < m ? xr[c] - (shift ? shift[c] : 0.0f) : 0.0f;
+    const float h = tf32_rna(v);
+    hr[c] = h;
+    lr[c] = tf32_rna(v - h);
+    ss = fmaf(v, v, ss);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if constexpr (kWarps == 1) {
+    if (lane == 0) norms[row] = ep.self_k(ss);
+  } else {
+    __shared__ float warp_ss[kWarps];
+    if (lane == 0) warp_ss[threadIdx.x / 32] = ss;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < kWarps; ++w) total += warp_ss[w];
+      norms[row] = ep.self_k(total);
+    }
+  }
+}
+
+// One launch of the split pass over rows rows, TPR threads a row.
+template <int TPR>
+cudaError_t tf32_split(const float* x, const float* shift, float* hi,
+                       float* lo, float* norms, int rows, int m, int mp,
+                       const kpca::Epilogue& ep, cudaStream_t stream) {
+  constexpr int per_block = kSplitThreads / TPR;
+  tf32_split_kernel<TPR><<<(rows + per_block - 1) / per_block, kSplitThreads,
+                           0, stream>>>(x, shift, hi, lo, norms, rows, m, mp,
+                                        ep);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

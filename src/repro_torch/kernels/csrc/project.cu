@@ -17,11 +17,12 @@
 // dominate, and in practice the latency of a short dependent chain.
 //
 // What the design does about it, in three launches from one C call:
-//  1. project_split_kernel, one block per query: the query less the shift
-//     row, split into its TF32 halves hi = rna(x), lo = rna(x - hi) at a row
-//     stride padded to 32 floats, and its squared norm (or self-kernel) in a
-//     fixed order. The support set was split the same way once per model
-//     (kernels/project/project.py:prepare_support). For rbf the shift is the
+//  1. the split pass (hopper.cuh: tf32_split_kernel), one block per query:
+//     the query less the shift row, split into its TF32 halves hi = rna(x),
+//     lo = rna(x - hi) at a row stride padded to 32 floats, and its squared
+//     norm (or self-kernel) in a fixed order. The support set goes through
+//     the same pass once per model (kpca_project_support below, from
+//     kernels/project/project.py:prepare_support). For rbf the shift is the
 //     support's mean row: distances stay, but the norms and dot products
 //     whose difference forms them shrink (about 15x on the served models),
 //     and so does the rounding the difference amplifies. Without it the
@@ -55,6 +56,11 @@
 // the tile order depend on L alone, and a query's norm is summed in an order
 // fixed by M, so a query's scores are bit-identical however the engine
 // batched it. No atomics.
+//
+// scripts/project_ablate.py times copies of this file edited by exact text:
+// the three wgmma_tf32 lines of the main loop, the `nk` line and the heads
+// of the two epilogue loops. A change to any of them goes into its VARIANTS
+// too.
 
 #include <cooperative_groups.h>
 
@@ -101,43 +107,6 @@ __host__ __device__ constexpr Layout layout(int nq, int ks) {
 struct Maps {
   CUtensorMap sh, sl, qh, ql;
 };
-
-// One block of kSplitThreads per query row: the row less the shift (NULL:
-// none), its TF32 halves at row stride mp with zero fill, and its squared
-// norm (rbf) or self-kernel, summed thread-strided, then by a shuffle tree
-// per warp and the warps in order.
-constexpr int kSplitThreads = 256;
-
-__global__ void __launch_bounds__(kSplitThreads)
-project_split_kernel(const float* __restrict__ x,
-                     const float* __restrict__ shift, float* __restrict__ hi,
-                     float* __restrict__ lo, float* __restrict__ norms, int m,
-                     int mp, kpca::Epilogue ep) {
-  __shared__ float warp_ss[kSplitThreads / 32];
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const float* xr = x + (size_t)row * m;
-  float* hr = hi + (size_t)row * mp;
-  float* lr = lo + (size_t)row * mp;
-  float ss = 0.0f;
-#pragma unroll 4
-  for (int c = tid; c < mp; c += kSplitThreads) {
-    const float v = c < m ? xr[c] - (shift ? shift[c] : 0.0f) : 0.0f;
-    const float h = tf32_rna(v);
-    hr[c] = h;
-    lr[c] = tf32_rna(v - h);
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (tid % 32 == 0) warp_ss[tid / 32] = ss;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < kSplitThreads / 32; ++w) total += warp_ss[w];
-    norms[row] = ep.self_k(total);
-  }
-}
 
 // KS feature slices per support tile (the cluster), NQ query tiles per
 // block.
@@ -427,9 +396,8 @@ extern "C" int kpca_project(const float* xq, const float* sh, const float* sl,
     return (int)cudaErrorInvalidValue;
   kpca::Epilogue ep{kind, degree, coef, scale, normalize};
   cudaStream_t s = (cudaStream_t)stream;
-  project_split_kernel<<<b, kSplitThreads, 0, s>>>(xq, shift, qh, ql, sq, m,
-                                                    mp, ep);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e =
+      tf32_split<kSplitThreads>(xq, shift, qh, ql, sq, b, m, mp, ep, s);
   if (e != cudaSuccess) return (int)e;
   // query tiles per block: up to four, as many as the batch fills
   const int nq = min(kQTiles, (b + kQTile - 1) / kQTile);
@@ -441,4 +409,20 @@ extern "C" int kpca_project(const float* xq, const float* sh, const float* sl,
       partials, cvec, bvec, out, (l + kRows - 1) / kRows, b, cp1,
       with_epilogue, inv_l);
   return (int)cudaGetLastError();
+}
+
+// The per-model half of the operands: xs (l, m) contiguous support rows less
+// shift (m,) (NULL: none) into sh, sl (l, mp) and their norms (rbf) or
+// self-kernels ss (l,), by the pass that splits the queries per call. One
+// launch.
+extern "C" int kpca_project_support(const float* xs, const float* shift,
+                                    float* sh, float* sl, float* ss, int l,
+                                    int m, int mp, int kind, int degree,
+                                    float coef, float scale, int normalize,
+                                    void* stream) {
+  if (l < 1 || m < 1 || mp < m || mp % kTileK != 0)
+    return (int)cudaErrorInvalidValue;
+  const kpca::Epilogue ep{kind, degree, coef, scale, normalize};
+  return (int)tf32_split<kSplitThreads>(xs, shift, sh, sl, ss, l, m, mp, ep,
+                                        (cudaStream_t)stream);
 }

@@ -32,8 +32,9 @@ def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
     of a (B, M) query batch giving its (B, C) scores. On the card the
     support norms, gamma and the coefficients with their ones column are
     formed here, with the support as the kernel reads it
-    (``prepare_support``), so each call is the kernel's one C call and
-    nothing else; on the CPU each call is the plain version."""
+    (``prepare_support``, one launch of the split pass), so each call is
+    the kernel's one C call and nothing else; on the CPU each call is the
+    plain version."""
     l, c = coefs.shape
     if x_support.shape[0] != l:
         raise ValueError(f"project shapes disagree: x_support "
@@ -47,14 +48,13 @@ def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
             row_mean_coef.to(torch.float32)).contiguous()
     bvec = (zeros if bias is None else bias.to(torch.float32)).contiguous()
     xs = x_support.contiguous()
-    support, ss = prepare_support(spec, xs)
+    support = prepare_support(spec, xs)
     g = gamma_operand(spec, xs, gamma)
     a_ext = torch.cat([coefs.to(torch.float32),
                        torch.ones((l, 1), dtype=torch.float32, device=dev)],
                       dim=1)
-    return lambda xq: project_tiles(spec, xq.contiguous(), xs, a_ext, ss, g,
-                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l,
-                                    support=support)
+    return lambda xq: project_tiles(spec, xq.contiguous(), support, a_ext, g,
+                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l)
 
 
 def project_op(spec: KernelSpec, x_query: torch.Tensor,
@@ -95,10 +95,9 @@ def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,
         return project_partial_reference(spec, x_query, x_support, coefs_ext,
                                          gamma)
     xs = x_support.contiguous()
-    support, ss = prepare_support(spec, xs)
-    return project_tiles(spec, x_query.contiguous(), xs,
-                         coefs_ext.to(torch.float32).contiguous(), ss,
-                         gamma_operand(spec, xs, gamma), support=support)
+    return project_tiles(spec, x_query.contiguous(), prepare_support(spec, xs),
+                         coefs_ext.to(torch.float32).contiguous(),
+                         gamma_operand(spec, xs, gamma))
 
 
 __all__ = ["project_op", "project_partial_op", "projector"]

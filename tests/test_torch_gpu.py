@@ -19,6 +19,8 @@ from repro_torch.kernels import (admm_local_update, admm_local_update_op,
                                  project_partial_op,
                                  project_partial_reference, project_reference,
                                  project_tiles)
+from repro_torch.kernels.gram.ops import row_norms
+from repro_torch.kernels.project.project import prepare_support, split_tf32
 
 pytestmark = pytest.mark.gpu
 
@@ -176,7 +178,7 @@ def test_project_rows_do_not_depend_on_batching(cuda):
 @pytest.mark.parametrize("l", [500, 2000])
 def test_project_kernel_at_engine_buckets(cuda, b, l):
     """Every pow2 slab the engine sends against both served support sizes
-    (8 and 4 feature slices): against the plain version, and each row
+    (8 and 2 feature slices): against the plain version, and each row
     bit-identical to projecting it alone."""
     spec = KernelSpec(kind="rbf", gamma=0.05)
     xs = _rand((l, 784), l, cuda, 0.05)
@@ -220,6 +222,23 @@ def test_project_kernel_same_bits_every_call(cuda, b, l):
     first = project_op(spec, xq, xs, coefs)
     for _ in range(3):
         assert torch.equal(project_op(spec, xq, xs, coefs), first)
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+@pytest.mark.parametrize("l,m", [(1, 3), (77, 40), (2000, 784)])
+def test_project_support_split_matches_plain(cuda, kind, l, m):
+    """``prepare_support`` on the card (the split pass, a block a row)
+    against its plain version on the same shifted rows: the TF32 halves bit
+    for bit, the norms or self-kernels to fp32 rounding (rtol 5e-5: 784
+    squares summed in another order)."""
+    spec = SPECS[kind]
+    xs = _rand((l, m), l + m, cuda, 1.0 / np.sqrt(m))
+    got = prepare_support(spec, xs)
+    rows = xs if got.shift is None else xs - got.shift
+    hi, lo = split_tf32(rows)
+    assert torch.equal(got.hi, hi) and torch.equal(got.lo, lo)
+    torch.testing.assert_close(got.ss, row_norms(spec, rows), rtol=5e-5,
+                               atol=1e-6)
 
 
 def test_project_kernel_rejects_too_many_components(cuda):

@@ -156,8 +156,9 @@ def test_launch_wrappers_refuse_cpu_tensors(wrapper):
             x = torch.rand((1, 4, 3))
             gram_tiles(spec, x, x, g)
         elif wrapper == "project":
-            project_tiles(spec, torch.rand((2, 3)), torch.rand((4, 3)),
-                          torch.rand((4, 2)), torch.rand((4,)), g)
+            project_tiles(spec, torch.rand((2, 3)),
+                          prepare_support(spec, torch.rand((4, 3))),
+                          torch.rand((4, 2)), g)
         elif wrapper == "center":
             center_tiles(torch.rand((1, 2, 4, 3)))
         else:
@@ -255,6 +256,32 @@ def test_project_support_split_is_padded_3xtf32(m):
     assert not hi[:, m:].any() and not lo[:, m:].any()
 
 
+@pytest.mark.parametrize("kind", sorted(SPEC_KW))
+def test_project_support_plain_version(kind):
+    """``prepare_support`` on a CPU tensor, the split pass's plain version:
+    for rbf the rows less their mean row, else the rows as they are, split
+    as ``split_tf32`` splits them, with their squared norms (rbf, against
+    float64) or self-kernels (linear/poly, the diagonal of the JAX Gram
+    without normalize)."""
+    x = _rand((70, 40), 7, 1 / np.sqrt(40))
+    spec = KernelSpec(**SPEC_KW[kind])
+    sup = prepare_support(spec, torch.as_tensor(x))
+    rows = x - x.mean(axis=0) if kind == "rbf" else x
+    if kind == "rbf":
+        np.testing.assert_allclose(sup.shift.numpy(), x.mean(axis=0),
+                                   rtol=1e-5, atol=1e-6)
+        want_ss = (rows.astype(np.float64) ** 2).sum(axis=1)
+    else:
+        assert sup.shift is None
+        want_ss = np.diag(np.asarray(j_gram_op(
+            JKernelSpec(**SPEC_KW[kind], normalize=False), jnp.asarray(x),
+            jnp.asarray(x), interpret=True)))
+    hi, lo = split_tf32(torch.as_tensor(x) if sup.shift is None
+                        else torch.as_tensor(x) - sup.shift)
+    assert torch.equal(sup.hi, hi) and torch.equal(sup.lo, lo)
+    np.testing.assert_allclose(sup.ss.numpy(), want_ss, rtol=2e-5, atol=2e-6)
+
+
 def _project_3xtf32(spec, xq, xs, coefs, rmc, bias):
     """The project kernel's arithmetic in plain PyTorch: both sides shifted
     by the support's mean row (rbf), 3xTF32 dot products per 32-feature
@@ -262,7 +289,7 @@ def _project_3xtf32(spec, xq, xs, coefs, rmc, bias):
     64-row support tiles' partials summed in tile order; the centering
     terms."""
     tiles, slices = support_chunking(xs.shape[0])
-    (sh, sl, shift), _ = prepare_support(spec, xs)
+    sh, sl, shift, _ = prepare_support(spec, xs)
     if shift is not None:
         xq, xs = xq - shift, xs - shift
     qh, ql = split_tf32(xq)
