@@ -43,13 +43,29 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            rows (log-uniform) in drains of 32, timed and then traced over
            the whole stream: queries/s, drain latency p50/p99, device time
            (all of it, and the project kernels'), idle share; every score
-           held against the plain projection.
+           held against the plain projection;
+  serve_async  the same stream through the started engine (background
+           flusher, device-runner thread, pinned staging, admission
+           "reject" at 8 slabs of rows) from 4 client threads: queries/s,
+           latency percentiles, device time and idle share beside
+           serve_stream's; scores against the plain projection and bitwise
+           against the synchronous engine; the stream as bf16 slabs
+           (bitwise the fp32 engine on the rounded queries, half the
+           host-to-card bytes); a mid-stream publish; request deadlines;
+  serve_sharded  the consensus model in 4 shards, and compressed to 125
+           landmarks a shard, through the engine: routing "auto" ("single"
+           on one card), then "mp" and "dp" over [card, card]; every
+           request within 3e-4 of the unsharded plain projection; the
+           placement cache's hits and no support split in steady drains.
 
-Each path (fit and serve; baselines; top-k) is driven with every kernel's
-launch count zeroed just before it and read just after; a kernel the path
-must run and never launched fails the run (the kernels, breakdown and
-stream phases count nowhere). The summary's ``launches`` is the fit and
-serve path's. The last lines are the kernels summary object, the
+Each path (fit and serve; baselines; top-k; serve_async; serve_sharded) is
+driven with every kernel's launch count zeroed just before it and read just
+after; a kernel the path must run and never launched fails the run (the
+kernels, breakdown and serve_stream phases count nowhere). Project's
+launches are also counted by kind: bf16 slabs, raw partials, support
+splits. The summary's ``launches`` is the fit and serve path's. Device
+times per call come from profiler traces whose recorded launches are
+checked against the calls made. The last lines are the kernels summary object, the
 nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. A failed check is reported and the run
 goes on, so one run shows every phase; it then exits non-zero before the
@@ -80,6 +96,11 @@ SIM30_MIN = 0.99
 STREAM_REQUESTS = 4096         # sustained serving: requests per stream
 STREAM_PER_DRAIN = 32          # requests submitted between two flushes
 STREAM_POOL = 8192             # query rows the stream's requests are cut from
+ASYNC_THREADS = 4              # serve_async's client threads
+ASYNC_QUEUE_FACTOR = 8         # its admission bound: 8 full slabs of rows
+ASYNC_RETRY_S = 1e-3           # a refused client's sleep before it retries
+SHARDED_REQUESTS = 1024        # serve_sharded's requests per run
+SHARDED_TOL = 3e-4             # the reference's sharded tolerance
 
 
 class SmokeFailure(RuntimeError):
@@ -126,28 +147,55 @@ def event_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(torch, fn, iters: int = 10) -> dict:
-    """Milliseconds per call that the card spent in each device kernel or
-    copy, from a ``torch.profiler`` trace of ``iters`` calls (no host launch
-    overhead)."""
+def _trace(torch, fn, iters: int) -> dict:
+    """{device kernel or copy: (recorded calls, device microseconds)} of a
+    ``torch.profiler`` trace of ``iters`` calls of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.device_time_total / iters / 1e3
+    return {e.key: (e.count, e.device_time_total)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
 
 
-def device_ms(torch, fn, kernels, iters: int = 10):
+def device_kernels(torch, fn, iters: int = 10, label: str = "") -> dict:
+    """Milliseconds per call that the card spent in each device kernel or
+    copy (no host launch overhead). One traced call gives each kernel's
+    launches per call; a trace of ``iters`` calls must then hold ``iters``
+    times as many, else the profiler dropped events: the trace is taken
+    once more on a short count, and a kernel still short fails the check.
+    A kernel's time per call is its recorded time over its recorded
+    launches, times its launches per call: nothing is divided by launches
+    the trace did not hold."""
+    fn()
+    per_call = {key: n for key, (n, _) in _trace(torch, fn, 1).items()}
+    out = {}
+    for attempt, count in enumerate((iters, max(2, iters // 5))):
+        traced = _trace(torch, fn, count)
+        short = sorted(key for key, n in per_call.items()
+                       if traced.get(key, (0, 0))[0] < n * count)
+        out = {key: us / n * per_call.get(key, n / count) / 1e3
+               for key, (n, us) in traced.items() if n}
+        if not short:
+            break
+        print(f"chip_smoke: {label}: the trace of {count} calls is short "
+              f"of launches for {short}", file=sys.stderr, flush=True)
+        if attempt == 1:
+            check(False, f"{label}: the profiler dropped launches of "
+                         f"{short} in two traces")
+    return out
+
+
+def device_ms(torch, fn, kernels, iters: int = 10, label: str = ""):
     """Mean milliseconds per call that the card spent in the named kernels;
     None where the trace holds no device time."""
-    total = sum(ms for key, ms in device_kernels(torch, fn, iters).items()
+    total = sum(ms for key, ms in device_kernels(torch, fn, iters,
+                                                 label).items()
                 if any(k in key for k in kernels))
     return total or None
 
@@ -211,7 +259,7 @@ def gram_record(spec, x, g, label, y=None):
     nbytes = 4 * (z * n * m + cross * z * k * m + z * n * k + 1)
     b_ms, b_by = bound(flops=3 * 2 * pairs * m, nbytes=nbytes,
                        peak=PEAK_TF32_FLOPS)
-    kern = device_kernels(torch, run)
+    kern = device_kernels(torch, run, label=f"gram {label}")
     # fp32 grade: the kernel within 2x the plain fp32 version's error, both
     # against a float64 Gram of the same inputs
     exact = gram_reference(spec, x.double(), None if y is None
@@ -239,13 +287,16 @@ def gram_record(spec, x, g, label, y=None):
 
 
 def project_record(spec, model, xq):
-    """The projection kernel serving ``model`` to the (B, M) batch xq, with
-    the model's own coefficients and centering terms."""
+    """The projection kernel serving ``model`` to the (B, M) batch xq (fp32,
+    or bf16: the split pass's bf16 instance, which must give the bits of
+    the widened fp32 batch), with the model's own coefficients and
+    centering terms."""
     import torch
     from repro_torch.core import oos
     from repro_torch.kernels import project_reference
     (b, m), (l, c) = xq.shape, model.coefs.shape
     project = oos.projector(model)
+    bf16 = xq.dtype == torch.bfloat16
 
     def run():
         return project(xq)
@@ -268,13 +319,22 @@ def project_record(spec, model, xq):
     check(fp64_err <= 2.0 * fp64_err_plain,
           f"project B{b}xL{l}: error against float64 {fp64_err:.3g} > 2 x "
           f"the plain version's {fp64_err_plain:.3g}")
-    kern = device_kernels(torch, run)
-    nbytes = 4 * (b * m + l * m + l * (c + 1) + l + b * c + 2 * c)
+    extra = {}
+    if bf16:
+        widened = project(xq.float())
+        torch.cuda.synchronize()
+        extra["bitwise_vs_widened_fp32"] = bool(torch.equal(got, widened))
+        check(extra["bitwise_vs_widened_fp32"],
+              f"project B{b}xL{l} bf16: not the bits of its widened queries")
+    kern = device_kernels(torch, run, label=f"project B{b}xL{l}")
+    nbytes = (2 if bf16 else 4) * b * m + 4 * (
+        l * m + l * (c + 1) + l + b * c + 2 * c)
     # the route taken: 3 TF32 products per fp32 one on the tensor cores
     b_ms, b_by = bound(flops=3 * 2 * b * l * m, nbytes=nbytes,
                        peak=PEAK_TF32_FLOPS)
     return dict(
-        shape=f"B{b}xL{l}xM{m}xC{c}", **errors(got, want),
+        shape=f"B{b}xL{l}xM{m}xC{c}" + ("xbf16" if bf16 else ""),
+        **errors(got, want), **extra,
         fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 200),
         device_ms=sum(v for key, v in kern.items()
@@ -283,7 +343,7 @@ def project_record(spec, model, xq):
         plain_ms=event_ms(torch, plain, 200),
         library_ms=None,
         matmul_ms=event_ms(torch, lambda: torch.matmul(
-            xq, model.x_support.T), 200),
+            xq.float(), model.x_support.T), 200),
         bound_ms=b_ms, bound_by=b_by,
         bound_fp32_ms=bound(flops=b * l * (2 * m + 4) + 2 * b * l * (c + 1),
                             nbytes=nbytes)[0])
@@ -306,7 +366,7 @@ def center_record(k, label):
     z = math.prod(lead)
     b_ms, b_by = bound(flops=3 * z * n * m,
                        nbytes=4 * (2 * z * n * m))
-    kern = device_kernels(torch, run)
+    kern = device_kernels(torch, run, label=f"center {label}")
     check(all("center_" in key for key in kern),
           f"center {label}: the op launched other kernels: {sorted(kern)}")
     ms = event_ms(torch, run, 20)
@@ -355,7 +415,8 @@ def admm_record(setup, label):
         shape=label, max_abs_err=max(e["max_abs_err"] for e in errs),
         max_scaled_err=max(e["max_scaled_err"] for e in errs),
         ms=event_ms(torch, run, 100),
-        device_ms=device_ms(torch, run, ("admm_step_kernel",)),
+        device_ms=device_ms(torch, run, ("admm_step_kernel",),
+                            label=f"admm_step {label}"),
         plain_ms=event_ms(torch, lambda: admm_local_update_reference(*ins),
                           100),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -394,6 +455,10 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     queries = torch.as_tensor(kpca_dataset(128, m=784, seed=7), device=dev)
     records["project"] = [project_record(spec, model, queries[:b])
                           for model in (small, full) for b in (8, 128)]
+    # the served bf16 slabs: the split pass's bf16 instance
+    records["project_bf16"] = [project_record(spec, model,
+                                              queries.bfloat16())
+                               for model in (small, full)]
     # project_partial_op: raw partials with an indicator column (rows past
     # 1500 play a shard's padding)
     ext = torch.cat([full.coefs, torch.ones((2000, 1), device=dev)], dim=1)
@@ -443,23 +508,34 @@ def mean_similarity(alphas, x_nodes, pooled, alpha_gt, spec, gamma):
 
 
 def launch_counters() -> dict:
+    """Each kernel's launch count (its wrapper's attribute), and project's
+    by kind: its bf16 query slabs (the split pass's bf16 instance), its raw
+    partials (the sharded path's partial projector), and the support split
+    of ``prepare_support`` (once per model and shard)."""
     from repro_torch.kernels import (admm_local_update, center_tiles,
-                                     gram_tiles, project_tiles)
-    return {"gram": gram_tiles, "project": project_tiles,
-            "center": center_tiles, "admm_step": admm_local_update}
+                                     gram_tiles, prepare_support,
+                                     project_tiles)
+    return {"gram": (gram_tiles, "launches"),
+            "project": (project_tiles, "launches"),
+            "center": (center_tiles, "launches"),
+            "admm_step": (admm_local_update, "launches"),
+            "project_bf16": (project_tiles, "bf16_launches"),
+            "project_partial": (project_tiles, "partial_launches"),
+            "project_support": (prepare_support, "launches")}
 
 
 def zero_launches() -> None:
     import torch
     torch.cuda.synchronize()
-    for wrapper in launch_counters().values():
-        wrapper.launches = 0
+    for wrapper, attr in launch_counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches(path: str, needed) -> dict:
     """Every kernel's launches since ``zero_launches``; a kernel in
     ``needed`` that never launched on this path fails the run."""
-    counts = {name: w.launches for name, w in launch_counters().items()}
+    counts = {name: getattr(w, attr)
+              for name, (w, attr) in launch_counters().items()}
     missing = [name for name in needed if counts[name] == 0]
     check(not missing, f"{path}: kernel(s) {missing} never launched: "
                        f"{counts}")
@@ -579,8 +655,9 @@ def phase_topk(dev, spec, setup, nodes, requests) -> dict:
 
 
 def timed_and_traced(torch, fn, calls_by_kernel: bool = False,
-                     kernels_of: tuple = ()):
-    """One warm run of ``fn``, one on the host clock, then one under
+                     kernels_of: tuple = (), warm: bool = True):
+    """One warm run of ``fn`` (unless ``warm`` is off: the caller warmed
+    it), one on the host clock, then one under
     ``torch.profiler``. Returns (the timed run's result, its wall seconds,
     and the traced run's device time, its count of device calls — kernel
     launches and copies —, the card's idle share of the untraced wall time,
@@ -590,7 +667,8 @@ def timed_and_traced(torch, fn, calls_by_kernel: bool = False,
     of its strings, under the first one's name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -658,7 +736,7 @@ def drain_stream(engine, requests, per_drain: int):
     return outs, drains
 
 
-def phase_serve_stream(dev, models) -> None:
+def phase_serve_stream(dev, models) -> dict:
     """Sustained serving: STREAM_REQUESTS mixed-size requests in drains of
     STREAM_PER_DRAIN, per model; steady-state wall time, drain latency,
     device time and idle share over the whole stream, every score held
@@ -670,7 +748,7 @@ def phase_serve_stream(dev, models) -> None:
     requests = stream_requests(STREAM_REQUESTS)
     rows = sum(x.shape[0] for x in requests)
     flat = np.concatenate(requests)
-    out = {}
+    out, sync_scores = {}, {}
     from repro_torch.kernels import project_tiles
     for name, mdl in models:
         engine = KpcaEngine(mdl, KpcaServeConfig(max_batch=128,
@@ -683,6 +761,7 @@ def phase_serve_stream(dev, models) -> None:
         # traced); the launches of one pass
         project_launches = (project_tiles.launches - before) // 3
         got = np.concatenate(scores)
+        sync_scores[name] = scores
         err = 0.0
         for i in range(0, rows, 16384):
             want = project_reference(
@@ -707,6 +786,381 @@ def phase_serve_stream(dev, models) -> None:
          drains=-(-len(requests) // STREAM_PER_DRAIN),
          per_drain=STREAM_PER_DRAIN, max_batch=128, min_bucket=8,
          models=out)
+    return {name: dict(numbers, scores=sync_scores[name])
+            for name, numbers in out.items()}
+
+
+STAT_FIELDS = ("n_requests", "n_queries", "n_padded", "n_rejected", "n_shed",
+               "n_deadline_expired", "n_donated", "n_zero_copy_slabs",
+               "n_h2d_bytes", "n_flushes", "n_compiles", "n_routed_mp",
+               "n_routed_dp", "n_routed_single", "max_inflight_drains")
+
+
+def run_async(engine, requests, threads: int = ASYNC_THREADS, midway=None,
+              log=None, retry_s: float = ASYNC_RETRY_S) -> dict:
+    """The stream through a started engine from ``threads`` client threads
+    (request i from thread i % threads, in order). A submit refused by
+    admission control is retried by its client after a short sleep, and
+    counted. ``midway`` runs on client 0 once it has submitted half its
+    requests. Returns every request's scores (or its exception), the wall
+    seconds from the first submit to the last result, the refused submits,
+    the request ids, and this run's engine counters and latency
+    percentiles; appended to ``log`` too."""
+    import threading
+    from repro_torch.serve import QueueFullError
+    futs = [None] * len(requests)
+    refused = [0] * threads
+
+    def client(t):
+        mine = range(t, len(requests), threads)
+        for k, i in enumerate(mine):
+            if midway is not None and t == 0 and k == len(mine) // 2:
+                midway()
+            while True:
+                try:
+                    futs[i] = engine.submit(requests[i])
+                    break
+                except QueueFullError:
+                    refused[t] += 1
+                    time.sleep(retry_s)
+
+    before = {f: getattr(engine.stats, f) for f in STAT_FIELDS}
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(t,))
+               for t in range(threads)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    outs = []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=120))
+        except Exception as e:          # deadline runs: the typed error
+            outs.append(e)
+    wall = time.perf_counter() - t0
+    # the last drain's accounting follows its futures' resolution
+    t_wait = time.perf_counter()
+    while engine.stats.n_requests + engine.stats.n_deadline_expired < \
+            before["n_requests"] + before["n_deadline_expired"] + \
+            len(requests) and time.perf_counter() - t_wait < 30:
+        time.sleep(1e-3)
+    stats = {f: getattr(engine.stats, f) - (0 if f == "max_inflight_drains"
+                                            else before[f])
+             for f in STAT_FIELDS}
+    recent = list(engine.stats.per_request)[-len(requests):]
+    lat = sorted(r.latency_s for r in recent) or [0.0]
+    wait = sorted(r.queue_wait_s for r in recent) or [0.0]
+    run = dict(outs=outs, wall=wall, refused=sum(refused), stats=stats,
+               rids=[f.request_id for f in futs],
+               versions={r.request_id: r.model_version for r in recent},
+               latency_ms_p50=1e3 * _pct(lat, 50),
+               latency_ms_p99=1e3 * _pct(lat, 99),
+               queue_wait_ms_p50=1e3 * _pct(wait, 50),
+               queue_wait_ms_p99=1e3 * _pct(wait, 99))
+    if log is not None:
+        log.append(run)
+    return run
+
+
+def _pct(sorted_values, q) -> float:
+    import numpy as np
+    return float(np.percentile(sorted_values, q))
+
+
+def max_err_vs_plain(dev, model, requests, outs) -> float:
+    """Largest |score - plain projection| over a stream's requests."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import project_reference
+    flat, got = np.concatenate(requests), np.concatenate(outs)
+    err = 0.0
+    for i in range(0, flat.shape[0], 16384):
+        want = project_reference(
+            model.spec, torch.as_tensor(flat[i:i + 16384], device=dev),
+            model.x_support, model.coefs, model.row_mean_coef, model.bias,
+            model.gamma).cpu().numpy()
+        err = max(err, float(np.abs(got[i:i + 16384] - want).max()))
+    return err
+
+
+def same_bits(a, b) -> int:
+    """Requests whose scores differ in any bit between two runs."""
+    import numpy as np
+    return sum(not np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def async_numbers(run, trace, rows) -> dict:
+    keep = {k: v for k, v in run.items()
+            if k not in ("outs", "rids", "versions")}
+    return dict(keep, queries_per_s=rows / run["wall"],
+                requests_per_s=len(run["outs"]) / run["wall"], **trace)
+
+
+def phase_serve_async(dev, models, sync) -> dict:
+    """The started engine (flusher and device-runner threads, pinned
+    staging, admission "reject" at queue_factor 8) under 4 client
+    threads, on the consensus model and its 500-landmark compression:
+
+      * the serve_stream stream, timed then traced: queries/s, the
+        engine's latency percentiles, device time and idle share, beside
+        serve_stream's synchronous numbers; every score against the plain
+        projection, and bitwise against serve_stream's synchronous scores;
+        64 aligned full-slab requests bitwise against the synchronous
+        engine on each alone;
+      * the same stream as bf16 slabs: bitwise against the synchronous fp32
+        engine fed the bf16-rounded queries; host-to-card bytes and the
+        project kernels' device time against the fp32 stream's;
+      * (consensus model) a refresh through a ``BackgroundPublisher``
+        landing mid-stream: every request bitwise the projection of the
+        version its ``RequestStats`` names;
+      * (consensus model) a request deadline below one drain's time: the
+        expired futures carry ``DeadlineExceededError``.
+
+    Launches are counted from the first started engine to the last result:
+    the synchronous references run before the count, the comparisons after
+    it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import oos
+    from repro_torch.data import kpca_dataset
+    from repro_torch.faults import DeadlineExceededError
+    from repro_torch.serve import (BackgroundPublisher, KpcaEngine,
+                                   KpcaServeConfig, ModelHandle)
+    t_phase = time.perf_counter()
+    requests = stream_requests(STREAM_REQUESTS)
+    rows = sum(x.shape[0] for x in requests)
+    rounded = [torch.as_tensor(x).bfloat16().float().numpy()
+               for x in requests]
+    aligned = [kpca_dataset(128, m=784, seed=500 + i) for i in range(64)]
+    deadline_reqs = requests[:512]
+    cfg = dict(max_batch=128, min_bucket=8, queue_factor=ASYNC_QUEUE_FACTOR,
+               admission="reject")
+    sync_cfg = KpcaServeConfig(max_batch=128, min_bucket=8)
+    runs, out = {}, {}
+    for name, mdl in models:        # the synchronous references, uncounted
+        sync_eng = KpcaEngine(mdl, sync_cfg, device=dev)
+        runs[name] = dict(
+            aligned_sync=[sync_eng.project_many([x])[0] for x in aligned],
+            rounded_sync=drain_stream(sync_eng, rounded,
+                                      STREAM_PER_DRAIN)[0])
+    zero_launches()
+    for name, mdl in models:
+        r = runs[name]
+        with KpcaEngine(mdl, KpcaServeConfig(**cfg), device=dev) as eng:
+            log = []
+            _, _, r["fp32_trace"] = timed_and_traced(
+                torch, lambda: run_async(eng, requests, log=log),
+                kernels_of=("project_", SPLIT_KERNEL), warm=False)
+            r["fp32"] = log[0]
+            r["aligned"] = run_async(eng, aligned)["outs"]
+        with KpcaEngine(mdl, KpcaServeConfig(query_dtype=torch.bfloat16,
+                                             **cfg), device=dev) as eng:
+            log = []
+            _, _, r["bf16_trace"] = timed_and_traced(
+                torch, lambda: run_async(eng, requests, log=log),
+                kernels_of=("project_", SPLIT_KERNEL), warm=False)
+            r["bf16"] = log[0]
+    name, full = models[0]
+    handle = ModelHandle(full)
+    alpha = -2.0 * full.coefs
+    with KpcaEngine(handle, KpcaServeConfig(**cfg), device=dev) as eng, \
+            BackgroundPublisher(handle) as pub:
+        publish = run_async(eng, requests[:1024],
+                            midway=lambda: pub.refresh(alpha))
+        pub.drain(timeout=60)
+    drain_s = sync[name]["drain_ms_p50"] / 1e3
+    deadline_s = min(2e-4, drain_s / 4)
+    with KpcaEngine(full, KpcaServeConfig(request_deadline_s=deadline_s,
+                                          **cfg), device=dev) as eng:
+        late = run_async(eng, deadline_reqs, threads=1)
+    launches = read_launches("serve_async", ("project", "project_bf16"))
+
+    for name, mdl in models:
+        r = runs[name]
+        fp32, bf16 = r["fp32"], r["bf16"]
+        err = max_err_vs_plain(dev, mdl, requests, fp32["outs"])
+        err_bf16 = max_err_vs_plain(dev, mdl, rounded, bf16["outs"])
+        diff_sync = same_bits(fp32["outs"], sync[name]["scores"])
+        diff_aligned = same_bits(r["aligned"], r["aligned_sync"])
+        diff_bf16 = same_bits(bf16["outs"], r["rounded_sync"])
+        check(err <= TOL and err_bf16 <= TOL,
+              f"serve_async ({name}) disagrees with the plain projection: "
+              f"{err:.3g}, bf16 {err_bf16:.3g} > {TOL}")
+        check(diff_aligned == 0, f"serve_async ({name}): {diff_aligned} "
+                                 f"aligned requests differ from the sync "
+                                 f"engine")
+        check(diff_sync == 0, f"serve_async ({name}): {diff_sync} stream "
+                              f"requests differ from serve_stream's "
+                              f"synchronous scores")
+        check(diff_bf16 == 0, f"serve_async ({name}): {diff_bf16} bf16 "
+                              f"requests differ from the fp32 engine on the "
+                              f"rounded queries")
+        check(fp32["stats"]["n_compiles"] == 0,
+              f"serve_async ({name}): traffic met an unwarmed shape")
+        proj = "project_device_s"
+        out[name] = dict(
+            support=mdl.n_support, max_abs_err=err, max_abs_err_bf16=err_bf16,
+            requests_differing_from_sync_stream=diff_sync,
+            aligned_requests_differing_from_sync=diff_aligned,
+            bf16_requests_differing_from_fp32_of_rounded=diff_bf16,
+            fp32=async_numbers(fp32, r["fp32_trace"], rows),
+            bf16=async_numbers(bf16, r["bf16_trace"], rows),
+            h2d_bytes_fp32=fp32["stats"]["n_h2d_bytes"],
+            h2d_bytes_bf16=bf16["stats"]["n_h2d_bytes"],
+            project_device_s_fp32=r["fp32_trace"][proj],
+            project_device_s_bf16=r["bf16_trace"][proj],
+            sync={k: sync[name][k] for k in (
+                "queries_per_s", "drain_ms_p50", "drain_ms_p99",
+                "device_s", "idle_share", proj, "wall_s")})
+        # bytes per staged row (real and pad rows; dynamic batching pads
+        # the two runs differently)
+        per_row = {k: r[k]["stats"]["n_h2d_bytes"] / (
+            r[k]["stats"]["n_queries"] + r[k]["stats"]["n_padded"])
+            for k in ("fp32", "bf16")}
+        out[name]["h2d_bytes_per_row"] = per_row
+        check(per_row == {"fp32": 4.0 * 784, "bf16": 2.0 * 784},
+              f"serve_async ({name}): host-to-card bytes per row {per_row}")
+
+    # the publish: each request against the version its stats name
+    name, full = models[0]
+    versions = [full, oos.refresh_coefficients(full, alpha)]
+    served = {}
+    for rid, x, got in zip(publish["rids"], requests[:1024],
+                           publish["outs"]):
+        v = publish["versions"].get(rid, -1)
+        served.setdefault(v, []).append((x, got))
+    check(set(served) == {0, 1}, f"serve_async publish: versions served "
+                                 f"{sorted(served)}, want both 0 and 1")
+    mismatched = 0
+    for v, pairs in served.items():
+        if v not in (0, 1):
+            mismatched += len(pairs)
+            continue
+        project = oos.projector(versions[v])
+        flat = np.concatenate([x for x, _ in pairs])
+        want = np.concatenate([
+            project(torch.as_tensor(flat[i:i + 8192], device=dev))
+            .cpu().numpy() for i in range(0, flat.shape[0], 8192)])
+        got = np.concatenate([g for _, g in pairs])
+        mismatched += int(not np.array_equal(got, want))
+    check(mismatched == 0, "serve_async publish: a request's scores are not "
+                           "its recorded version's")
+    expired = [o for o in late["outs"] if isinstance(o, Exception)]
+    typed = all(isinstance(e, DeadlineExceededError) for e in expired)
+    served_late = [(x, o) for x, o in zip(deadline_reqs, late["outs"])
+                   if not isinstance(o, Exception)]
+    late_err = max_err_vs_plain(dev, full, [x for x, _ in served_late],
+                                [o for _, o in served_late]) \
+        if served_late else 0.0
+    check(expired and typed and
+          len(expired) == late["stats"]["n_deadline_expired"]
+          and late_err <= TOL,
+          f"serve_async deadline: {len(expired)} expired (typed {typed}), "
+          f"engine counted {late['stats']['n_deadline_expired']}, served "
+          f"error {late_err:.3g}")
+    emit("serve_async", requests=len(requests), rows=rows,
+         client_threads=ASYNC_THREADS, queue_factor=ASYNC_QUEUE_FACTOR,
+         admission="reject", client_retry_s=ASYNC_RETRY_S, max_batch=128,
+         min_bucket=8, models=out,
+         publish=dict(requests=1024, by_version={
+             str(v): len(p) for v, p in sorted(served.items())},
+             mismatched=mismatched),
+         deadline=dict(requests=len(deadline_reqs), deadline_s=deadline_s,
+                       sync_drain_s_p50=drain_s, expired=len(expired),
+                       engine_expired=late["stats"]["n_deadline_expired"],
+                       served=len(served_late), max_abs_err=late_err),
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_serve_sharded(dev, full) -> dict:
+    """``shard_fitted(full, 4)`` and its 125-landmark-per-shard compression
+    (Nystrom per shard, through gram), each served through the started
+    engine by routing "auto" (one card: make_serving_mesh(4) is None, so
+    "single") and then "mp" and "dp" forced over the mesh [card, card]
+    (the mp and dp code driven twice on the one H100: not a multi-card
+    result). Every request within 3e-4 of the plain projection of the
+    unsharded model (for the compressed one, its gathered form); steady
+    drains hit the placement cache and split no support. Device time per
+    slab of "single" beside the unsharded engine's on the same requests
+    (run after the launch count is read)."""
+    import torch
+    from repro_torch.core import oos
+    from repro_torch.kernels import prepare_support
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig
+    t_phase = time.perf_counter()
+    requests = stream_requests(SHARDED_REQUESTS, seed=13)
+    rows = sum(x.shape[0] for x in requests)
+    cfg = dict(max_batch=128, min_bucket=8)
+    zero_launches()
+    sharded, _ = oos.shard_fitted(full, 4)
+    compressed, rel_err = oos.shard_fitted(full, 4, landmarks_per_shard=125)
+    cases = (("sharded", sharded, full),
+             ("sharded_compressed", compressed, oos.gather_fitted(compressed)))
+    runs = {}
+    for name, sh, unsharded in cases:
+        for routing, mesh in (("auto", None), ("mp", [dev, dev]),
+                              ("dp", [dev, dev])):
+            eng = KpcaEngine(sh, KpcaServeConfig(routing=routing, **cfg),
+                             device=dev, mesh=mesh)
+            with eng:
+                support0 = prepare_support.launches
+                log = []
+                if routing == "auto":
+                    _, _, trace = timed_and_traced(
+                        torch, lambda: run_async(eng, requests, log=log),
+                        warm=False)
+                    run = log[0]
+                    trace["device_s_per_slab"] = trace["device_s"] / \
+                        log[1]["stats"]["n_donated"]
+                else:
+                    run, trace = run_async(eng, requests), {}
+                steady_splits = prepare_support.launches - support0
+            runs[name, routing] = (run, trace, steady_splits,
+                                   eng.router.n_placements,
+                                   eng.router.n_placement_hits,
+                                   eng.stats.routing_summary())
+    launches = read_launches("serve_sharded", ("gram", "project",
+                                               "project_partial"))
+    for name, _, unsharded in cases:    # the unsharded baseline, uncounted
+        with KpcaEngine(unsharded, KpcaServeConfig(**cfg), device=dev) as eng:
+            log = []
+            _, _, trace = timed_and_traced(
+                torch, lambda: run_async(eng, requests, log=log), warm=False)
+            trace["device_s_per_slab"] = trace["device_s"] / \
+                log[1]["stats"]["n_donated"]
+            runs[name, "unsharded"] = (log[0], trace)
+    out = {}
+    for name, sh, unsharded in cases:
+        per = out[name] = dict(support=sh.n_support, shards=sh.n_shards,
+                               shard_sizes=list(sh.shard_sizes))
+        for routing in ("auto", "mp", "dp"):
+            run, trace, splits, placements, hits, summary = \
+                runs[name, routing]
+            err = max_err_vs_plain(dev, unsharded, requests, run["outs"])
+            want = "single" if routing == "auto" else routing
+            check(err <= SHARDED_TOL, f"serve_sharded ({name}, {routing}): "
+                                      f"{err:.3g} > {SHARDED_TOL}")
+            check(run["stats"][f"n_routed_{want}"] > 0 and summary.startswith(
+                f"{want}:") and "," not in summary,
+                f"serve_sharded ({name}, {routing}): routed {summary}")
+            check(splits == 0 and hits > 0,
+                  f"serve_sharded ({name}, {routing}): {splits} support "
+                  f"splits in steady drains, {hits} placement hits")
+            per[routing] = dict(
+                max_abs_err=err, routed=summary, placements=placements,
+                placement_hits=hits, steady_support_splits=splits,
+                queries_per_s=rows / run["wall"],
+                latency_ms_p50=run["latency_ms_p50"],
+                latency_ms_p99=run["latency_ms_p99"], **trace)
+        run, trace = runs[name, "unsharded"]
+        per["unsharded"] = dict(queries_per_s=rows / run["wall"], **trace)
+    emit("serve_sharded", requests=len(requests), rows=rows,
+         mesh="[card, card] for mp and dp (one H100)", tolerance=SHARDED_TOL,
+         compress_rel_err_bound=[float(v) for v in rel_err], models=out,
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
@@ -847,9 +1301,6 @@ def main() -> int:
         "baselines": phase_baselines(dev, spec, setup, alpha_gt[:, 0],
                                      sims[30]),
         "topk": phase_topk(dev, spec, setup, nodes, requests)}
-    check("jax" not in sys.modules and not any(
-        k == "repro" or k.startswith("repro.") for k in sys.modules),
-        "the JAX package was imported")
 
     # -- where the time goes: each phase once more, warm, timed and then
     # traced (after the launch counts were read, so none of this counts) -----
@@ -866,7 +1317,13 @@ def main() -> int:
                               gamma=setup.gamma, device=dev)),
         "topk": lambda: run_admm_topk(setup, k=2, n_iters=30),
     }.items()})
-    phase_serve_stream(dev, (("full", loaded), ("compressed", compressed)))
+    served = (("full", loaded), ("compressed", compressed))
+    sync = phase_serve_stream(dev, served)
+    path_launches["serve_async"] = phase_serve_async(dev, served, sync)
+    path_launches["serve_sharded"] = phase_serve_sharded(dev, loaded)
+    check("jax" not in sys.modules and not any(
+        k == "repro" or k.startswith("repro.") for k in sys.modules),
+        "the JAX package was imported")
 
     if FAILURES:
         raise SmokeFailure(f"{len(FAILURES)} check(s) failed: {FAILURES}")
@@ -896,6 +1353,15 @@ def main() -> int:
             **({"bound_fp32_ms": r["bound_fp32_ms"],
                 "matmul_ms": r["matmul_ms"]} if name in ("gram", "project")
                else {})))
+    # project's bf16 instance (the served bf16 slabs) and its launches by
+    # kind on every path
+    bf16 = records["project_bf16"][1]
+    summary[1]["bf16"] = {k: bf16[k] for k in (
+        "shape", "max_abs_err", "bitwise_vs_widened_fp32", "ms",
+        "device_ms", "plain_ms", "bound_ms", "bound_by")}
+    summary[1]["launches_by_kind"] = {
+        p: {k: c[f"project_{k}"] for k in ("bf16", "partial", "support")}
+        for p, c in path_launches.items()}
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

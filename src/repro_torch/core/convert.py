@@ -1,8 +1,8 @@
 """Carry weights and state across from the JAX package as numpy arrays.
 
-The JAX package's ``FittedKpca``, ``DkpcaSetup`` and ``AdmmState`` leaves,
-converted to numpy (``np.asarray`` on each), become the port's dataclasses
-on a chosen device. Checkpoints need no conversion: both packages write the
+The JAX package's ``FittedKpca``, ``ShardedFittedKpca``, ``DkpcaSetup`` and
+``AdmmState`` leaves, converted to numpy (``np.asarray`` on each), become the
+port's dataclasses on a chosen device. Checkpoints need no conversion: both packages write the
 same layout (``repro_torch.checkpoint``).
 """
 
@@ -16,7 +16,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .admm import DkpcaSetup
 from .kernels_math import KernelSpec
-from .oos import FittedKpca
+from .oos import FittedKpca, ShardedFittedKpca
 from .solver import AdmmState
 
 FITTED_LEAVES = ("x_support", "coefs", "row_mean_coef", "bias", "gamma",
@@ -36,6 +36,24 @@ def fitted_from_numpy(arrays: Mapping[str, np.ndarray], spec: KernelSpec,
     leaves = {k: (None if arrays.get(k) is None else _f32(arrays[k], dev))
               for k in FITTED_LEAVES}
     return FittedKpca(spec=spec, **leaves)
+
+
+SHARDED_LEAVES = ("x_support", "coefs_ext", "row_mean_coef", "bias",
+                  "gamma", "k_row_mean", "k_grand_mean")
+
+
+def sharded_from_numpy(arrays: Mapping[str, np.ndarray], spec: KernelSpec,
+                       n_support: int, shard_sizes,
+                       device: DeviceLike = "cuda") -> ShardedFittedKpca:
+    """JAX ``ShardedFittedKpca`` leaves (``k_row_mean``/``k_grand_mean`` may
+    be absent or None) and its static fields -> the port's
+    ``ShardedFittedKpca`` on ``device``."""
+    dev = resolve_device(device)
+    leaves = {k: (None if arrays.get(k) is None else _f32(arrays[k], dev))
+              for k in SHARDED_LEAVES}
+    return ShardedFittedKpca(spec=spec, n_support=int(n_support),
+                             shard_sizes=tuple(int(n) for n in shard_sizes),
+                             **leaves)
 
 
 def setup_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -61,4 +79,5 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray],
     return AdmmState(t=int(np.asarray(arrays["t"])), **t)
 
 
-__all__ = ["fitted_from_numpy", "setup_from_numpy", "state_from_numpy"]
+__all__ = ["fitted_from_numpy", "setup_from_numpy", "sharded_from_numpy",
+           "state_from_numpy"]

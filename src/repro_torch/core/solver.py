@@ -312,6 +312,29 @@ class ResidualImprovement:
         return False
 
 
+def resolve_refresh_policy(policy) -> object:
+    """Normalize a refresh-cadence spec to a policy object: an int (every k
+    chunks), the string "residual" (``ResidualImprovement`` defaults), any
+    object already exposing ``should_refresh``, a bare ``ChunkResult ->
+    bool`` callable, or None (every chunk)."""
+    if policy is None:
+        return EveryK(1)
+    if isinstance(policy, int):
+        return EveryK(policy)
+    if isinstance(policy, str):
+        if policy != "residual":
+            raise ValueError(f"unknown refresh policy {policy!r}")
+        return ResidualImprovement()
+    if hasattr(policy, "should_refresh"):
+        return policy
+    if callable(policy):
+        class _Fn:
+            def should_refresh(self, chunk, _fn=policy):
+                return bool(_fn(chunk))
+        return _Fn()
+    raise TypeError(f"cannot interpret refresh policy {policy!r}")
+
+
 def resolve_rho2(rho2, setup) -> Callable[[int], float]:
     """Normalize a rho2 policy to a host-side ``t -> float``: a
     ``RhoSchedule``, "theorem2", a number, or a callable ``t -> rho``."""
@@ -412,6 +435,6 @@ __all__ = [
     "AdmmState", "ChunkResult", "DenseComm", "EveryK", "ResidualImprovement",
     "SolverOps", "admm_step", "dense_parts", "init_state",
     "inverse_denominators", "lagrangian",
-    "load_state", "resolve_rho2", "run_chunked", "run_steps", "save_state",
+    "load_state", "resolve_refresh_policy", "resolve_rho2", "run_chunked", "run_steps", "save_state",
     "slot_rho",
 ]

@@ -11,12 +11,13 @@ from .admm_step import (admm_local_update, admm_local_update_op,
                         admm_local_update_reference)
 from .centering import center_op, center_reference, center_tiles
 from .gram import gram_op, gram_reference, gram_tiles
-from .project import (project_op, project_partial_op,
-                      project_partial_reference, project_reference,
-                      project_tiles, projector)
+from .project import (partial_projector, prepare_support, project_op,
+                      project_partial_op, project_partial_reference,
+                      project_reference, project_tiles, projector)
 
 __all__ = ["admm_local_update", "admm_local_update_op",
            "admm_local_update_reference", "center_op", "center_reference",
            "center_tiles", "gram_op", "gram_reference", "gram_tiles",
-           "project_op", "project_partial_op", "project_partial_reference",
+           "partial_projector", "prepare_support", "project_op",
+           "project_partial_op", "project_partial_reference",
            "project_reference", "project_tiles", "projector"]

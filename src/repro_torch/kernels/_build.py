@@ -40,11 +40,12 @@ SIGNATURES = {
     # tile rows, kind, degree, coef, scale, normalize, stream
     "kpca_gram": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                   _f, _i, _p],
-    # xq, support hi, support lo, shift (NULL: none), a, ss, gamma,
-    # scratch, cvec, bvec, out, b, l, m, padded m, cp1, feature slices,
-    # with_epilogue, inv_l, kind, degree, coef, scale, normalize, stream
-    "kpca_project": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
-                     _i, _i, _i, _i, _f, _i, _i, _f, _f, _i, _p],
+    # xq, xq is bf16, support hi, support lo, shift (NULL: none), a, ss,
+    # gamma, scratch, cvec, bvec, out, b, l, m, padded m, cp1, feature
+    # slices, with_epilogue, inv_l, kind, degree, coef, scale, normalize,
+    # stream
+    "kpca_project": [_p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+                     _i, _i, _i, _i, _i, _f, _i, _i, _f, _f, _i, _p],
     # support rows, shift (NULL: none), hi, lo, norms, l, m, padded m,
     # kind, degree, coef, scale, normalize, stream
     "kpca_project_support": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _f,

@@ -28,13 +28,17 @@ def on_card(*tensors: torch.Tensor) -> bool:
 
 
 def check_kernel_operand(name: str, t: torch.Tensor, ndim: int,
-                         device: torch.device) -> None:
-    """What every hand-written kernel takes: fp32, contiguous, on the card."""
+                         device: torch.device,
+                         dtypes: tuple = (torch.float32,)) -> None:
+    """What every hand-written kernel takes: fp32 (or one of ``dtypes``),
+    contiguous, on the card."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor on {device}, "
                          f"got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(str(d) for d in dtypes)}, "
+                        f"got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -223,14 +225,10 @@ extern "C" int kpca_admm_step(const float* v, const float* inv, const float* k,
   const size_t smem = smem_floats(n, staged) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   if (staged) {
-    static bool attr_set = false;
-    if (!attr_set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          admm_step_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kSmemMax);
-      if (e != cudaSuccess) return (int)e;
-      attr_set = true;
-    }
+    static int opted[kpca::kMaxDevices] = {};
+    const cudaError_t e =
+        kpca::opt_in_smem(admm_step_kernel<true>, (int)kSmemMax, opted);
+    if (e != cudaSuccess) return (int)e;
     admm_step_kernel<true><<<j, kThreads, smem, st>>>(
         v, inv, k, b, g, rho, alpha, bout, ka, n, s, b_sj, b_sn, b_ss, g_sj,
         g_sn, g_ss);

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;            // stats / apply: 8 warps
@@ -316,14 +318,15 @@ long long small_smem(int n, int m) {
 int launch_small(const View& v, float* out, int z, int vec, cudaStream_t st) {
   const long long smem = small_smem(v.n, v.m);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  // opt in above 48 KB once per kernel, to the most any call has needed
-  static long long opted[2] = {48 * 1024, 48 * 1024};
-  if (smem > opted[vec ? 1 : 0]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        vec ? center_small_kernel<true> : center_small_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // opt in above 48 KB per kernel and device, to the most any call needed
+  static int opted[2][kpca::kMaxDevices] = {};
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        vec ? kpca::opt_in_smem(center_small_kernel<true>, (int)smem,
+                                opted[1])
+            : kpca::opt_in_smem(center_small_kernel<false>, (int)smem,
+                                opted[0]);
     if (e != cudaSuccess) return (int)e;
-    opted[vec ? 1 : 0] = smem;
   }
   if (vec)
     center_small_kernel<true><<<z, kSmallThreads, smem, st>>>(v, out);

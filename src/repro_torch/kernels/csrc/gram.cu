@@ -209,14 +209,10 @@ int launch_mma(const Maps& maps, const float* sx, const float* sy,
                int mp, int symmetric, kpca::Epilogue ep,
                cudaStream_t stream) {
   using C = Cfg<BM>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gram_mma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmemBytes);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static int opted[kpca::kMaxDevices] = {};
+  const cudaError_t e =
+      kpca::opt_in_smem(gram_mma_kernel<BM>, C::kSmemBytes, opted);
+  if (e != cudaSuccess) return (int)e;
   const int ntr = (n + BM - 1) / BM, ntc = (k + kBN - 1) / kBN;
   const int tiles = symmetric ? ntc * (ntc + 1) / 2 : ntr * ntc;
   gram_mma_kernel<BM><<<dim3(tiles, batch), C::kThreads, C::kSmemBytes,

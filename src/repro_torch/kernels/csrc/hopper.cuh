@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,12 +37,21 @@ __device__ __forceinline__ float tf32_rna(float v) {
 // (one warp, eight rows per block; gram's many rows) or kSplitThreads (one
 // block per row; project's short query batches and its support set). A
 // row's norm is summed thread-strided, then by a shuffle tree per warp,
-// then the warps in order: an order fixed by mp and TPR alone.
+// then the warps in order: an order fixed by mp and TPR alone. The input
+// element T is float, or __nv_bfloat16 for project's bf16 query slabs: a
+// bf16 value widens to fp32 exactly on load, and everything after the load
+// is the fp32 path's, so a bf16 row gives the same bits as its widened fp32
+// copy, from half the bytes.
 constexpr int kSplitThreads = 256;
 
-template <int TPR>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <int TPR, typename T>
 __global__ void __launch_bounds__(kSplitThreads)
-tf32_split_kernel(const float* __restrict__ x,
+tf32_split_kernel(const T* __restrict__ x,
                   const float* __restrict__ shift, float* __restrict__ hi,
                   float* __restrict__ lo, float* __restrict__ norms, int rows,
                   int m, int mp, kpca::Epilogue ep) {
@@ -50,13 +60,13 @@ tf32_split_kernel(const float* __restrict__ x,
   const int t = threadIdx.x % TPR, lane = threadIdx.x % 32;
   const int row = blockIdx.x * (kSplitThreads / TPR) + threadIdx.x / TPR;
   if (row >= rows) return;   // whole warps; with a block a row, never
-  const float* xr = x + (size_t)row * m;
+  const T* xr = x + (size_t)row * m;
   float* hr = hi + (size_t)row * mp;
   float* lr = lo + (size_t)row * mp;
   float ss = 0.0f;
 #pragma unroll 4
   for (int c = t; c < mp; c += TPR) {
-    const float v = c < m ? xr[c] - (shift ? shift[c] : 0.0f) : 0.0f;
+    const float v = c < m ? widen(xr[c]) - (shift ? shift[c] : 0.0f) : 0.0f;
     const float h = tf32_rna(v);
     hr[c] = h;
     lr[c] = tf32_rna(v - h);
@@ -80,12 +90,12 @@ tf32_split_kernel(const float* __restrict__ x,
 }
 
 // One launch of the split pass over rows rows, TPR threads a row.
-template <int TPR>
-cudaError_t tf32_split(const float* x, const float* shift, float* hi,
+template <int TPR, typename T>
+cudaError_t tf32_split(const T* x, const float* shift, float* hi,
                        float* lo, float* norms, int rows, int m, int mp,
                        const kpca::Epilogue& ep, cudaStream_t stream) {
   constexpr int per_block = kSplitThreads / TPR;
-  tf32_split_kernel<TPR><<<(rows + per_block - 1) / per_block, kSplitThreads,
+  tf32_split_kernel<TPR, T><<<(rows + per_block - 1) / per_block, kSplitThreads,
                            0, stream>>>(x, shift, hi, lo, norms, rows, m, mp,
                                         ep);
   return cudaGetLastError();

@@ -319,14 +319,10 @@ int launch_partials(const Maps& maps, const float* sq, const float* a,
                     int l, int mp, int cp1, kpca::Epilogue ep,
                     cudaStream_t stream) {
   constexpr int smem = 1024 + layout(NQ, KS).total;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        project_partials_kernel<KS, NQ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static int opted[kpca::kMaxDevices] = {};
+  const cudaError_t oe =
+      kpca::opt_in_smem(project_partials_kernel<KS, NQ>, smem, opted);
+  if (oe != cudaSuccess) return (int)oe;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((l + kRows - 1) / kRows * KS,
                      (b + NQ * kQTile - 1) / (NQ * kQTile), 1);
@@ -363,14 +359,17 @@ constexpr LaunchFn kLaunch[4][kQTiles] = {
 
 }  // namespace
 
-// xq (b, m) contiguous queries; sh, sl (l, mp) the TF32 halves of the
+// xq (b, m) contiguous queries, fp32, or bf16 where xq_bf16 is set (widened
+// on load by the split pass, the only part that reads them); sh, sl (l, mp)
+// the TF32 halves of the
 // support rows less shift, at a row stride mp (a multiple of 32, zero past
 // m); shift (m,) subtracted from each query too, or NULL; a (l, cp1); ss
 // (l,); gamma 0-d; scratch: the queries' halves (b, mp) twice and their
 // norms (b,), then (ceil(l / 64), b, cp1) partials; ks feature slices (1, 2,
 // 4, 8); out (b, cp1 - 1) with the epilogue, else (b, cp1). Three launches,
 // one C call.
-extern "C" int kpca_project(const float* xq, const float* sh, const float* sl,
+extern "C" int kpca_project(const void* xq, int xq_bf16, const float* sh,
+                            const float* sl,
                             const float* shift, const float* a,
                             const float* ss, const float* gamma,
                             float* scratch, const float* cvec,
@@ -397,7 +396,11 @@ extern "C" int kpca_project(const float* xq, const float* sh, const float* sl,
   kpca::Epilogue ep{kind, degree, coef, scale, normalize};
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t e =
-      tf32_split<kSplitThreads>(xq, shift, qh, ql, sq, b, m, mp, ep, s);
+      xq_bf16 ? tf32_split<kSplitThreads>(
+                    static_cast<const __nv_bfloat16*>(xq), shift, qh, ql, sq,
+                    b, m, mp, ep, s)
+              : tf32_split<kSplitThreads>(static_cast<const float*>(xq),
+                                          shift, qh, ql, sq, b, m, mp, ep, s);
   if (e != cudaSuccess) return (int)e;
   // query tiles per block: up to four, as many as the batch fills
   const int nq = min(kQTiles, (b + kQTile - 1) / kQTile);

@@ -7,6 +7,24 @@
 
 namespace kpca {
 
+// Dynamic shared memory above 48 KB is an opt-in per kernel and per device:
+// cudaFuncSetAttribute acts on the current device's context, so the opt-in
+// is recorded per device (opted[device]: the bytes opted in so far), not
+// once per process, or the first launch on a second card fails.
+constexpr int kMaxDevices = 64;
+
+template <typename F>
+cudaError_t opt_in_smem(F* func, int bytes, int* opted) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && opted[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < kMaxDevices) opted[dev] = bytes;
+  return e;
+}
+
 enum Kind : int { kRbf = 0, kLinear = 1, kPoly = 2 };
 
 struct Epilogue {

@@ -5,7 +5,12 @@ plain version.
     epilogue (the ones column of A gathers the kernel row-sum);
     ``projector`` does its per-model part once, for a server.
   * ``project_partial_op`` — the same kernel with c = b = 0 and the caller's
-    indicator column: raw (B, C+1) partials for sharded serving.
+    indicator column: raw (B, C+1) partials for sharded serving;
+    ``partial_projector`` does its per-shard part once (what the sharded
+    router's placement cache holds per shard and model version).
+
+Query batches may be bf16 (the engine's bf16 slabs): the kernel widens them
+on load, the plain version before its first product.
 
 Matches ``repro.kernels.project.ops`` (tests/test_torch_kernels.py).
 """
@@ -77,6 +82,29 @@ def project_op(spec: KernelSpec, x_query: torch.Tensor,
                      gamma)(x_query)
 
 
+def partial_projector(spec: KernelSpec, x_support: torch.Tensor,
+                      coefs_ext: torch.Tensor,
+                      gamma: Optional[torch.Tensor] = None
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The per-shard half of ``project_partial_op``, done once: returns a
+    function of a (B, M) query batch giving its raw (B, C+1) partial. On the
+    card the support as the kernel reads it (``prepare_support``, one launch
+    of the split pass) and gamma are formed here, so each call is the
+    kernel's one C call; on the CPU each call is the plain version."""
+    if x_support.shape[0] != coefs_ext.shape[0]:
+        raise ValueError(f"project shapes disagree: x_support "
+                         f"{tuple(x_support.shape)}, coefs_ext "
+                         f"{tuple(coefs_ext.shape)}")
+    if not on_card(x_support, coefs_ext):
+        return lambda xq: project_partial_reference(spec, xq, x_support,
+                                                    coefs_ext, gamma)
+    xs = x_support.contiguous()
+    support = prepare_support(spec, xs)
+    g = gamma_operand(spec, xs, gamma)
+    a_ext = coefs_ext.to(torch.float32).contiguous()
+    return lambda xq: project_tiles(spec, xq.contiguous(), support, a_ext, g)
+
+
 def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,
                        x_support: torch.Tensor, coefs_ext: torch.Tensor,
                        gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -84,20 +112,15 @@ def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,
     the last column of ``coefs_ext`` is the valid-row indicator, so the last
     output column is the raw kernel row-sum over valid rows. No centering
     epilogue. On the card the support as the kernel reads it
-    (``prepare_support``) is formed per call."""
-    if x_support.shape[0] != coefs_ext.shape[0] or \
-            x_query.shape[1] != x_support.shape[1]:
+    (``prepare_support``) is formed per call; a server holds a
+    ``partial_projector`` instead."""
+    if x_query.shape[1] != x_support.shape[1]:
         raise ValueError(f"project shapes disagree: x_query "
                          f"{tuple(x_query.shape)}, x_support "
-                         f"{tuple(x_support.shape)}, coefs_ext "
-                         f"{tuple(coefs_ext.shape)}")
-    if not on_card(x_query, x_support, coefs_ext):
-        return project_partial_reference(spec, x_query, x_support, coefs_ext,
-                                         gamma)
-    xs = x_support.contiguous()
-    return project_tiles(spec, x_query.contiguous(), prepare_support(spec, xs),
-                         coefs_ext.to(torch.float32).contiguous(),
-                         gamma_operand(spec, xs, gamma))
+                         f"{tuple(x_support.shape)}")
+    on_card(x_query, x_support, coefs_ext)   # one device for all, or raise
+    return partial_projector(spec, x_support, coefs_ext, gamma)(x_query)
 
 
-__all__ = ["project_op", "project_partial_op", "projector"]
+__all__ = ["partial_projector", "project_op", "project_partial_op",
+           "projector"]

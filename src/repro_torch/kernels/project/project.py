@@ -3,7 +3,8 @@
 
 Replaces the TPU kernel ``src/repro/kernels/project/project.py:
 project_tiles``. One C call, three launches on PyTorch's current stream: a
-split pass shifts the queries and writes their 3xTF32 halves and norms; the
+split pass shifts the queries (fp32, or bf16 slabs widened on load) and
+writes their 3xTF32 halves and norms; the
 tensor-core partials kernel (``wgmma``; grid = 64-row support tiles x
 feature slices, one thread-block cluster per tile, x query groups) writes
 one (B, C+1) partial per support tile into scratch; the finalize kernel
@@ -87,7 +88,11 @@ def prepare_support(spec: KernelSpec, xs: torch.Tensor) -> Support:
             KINDS[spec.kind], int(spec.degree), float(spec.coef),
             float(spec.scale), int(bool(spec.normalize)), stream_of(dev))
     check_launch("project support split", rc)
+    prepare_support.launches += 1
     return Support(hi, lo, shift, ss)
+
+
+prepare_support.launches = 0
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,16 +119,21 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
                   bvec=None, inv_l: float = 0.0) -> torch.Tensor:
     """Fused projection on the card.
 
-    xq (B, M) queries; ``support`` the (L, M) support set as the kernel
+    xq (B, M) queries, fp32 or bf16 (a bf16 slab is widened on load and
+    then takes the fp32 path: the scores are bitwise those of
+    ``xq.float()``); ``support`` the (L, M) support set as the kernel
     reads it (``prepare_support``); a_ext (L, C+1) coefficients whose last
     column is the ones/indicator column; gamma 0-d. The kernel shifts and
     splits the queries itself and sums their norms in a batch-independent
     order. With ``cvec``/``bvec`` (C,) the result is (B, C) scores
     ``P[:, :C] + P[:, C] * inv_l * cvec + bvec``; without them it is the raw
-    (B, C+1) partial ``K @ a_ext``.
+    (B, C+1) partial ``K @ a_ext``. Besides ``launches``, the wrapper counts
+    its bf16 launches and its raw-partial launches.
     """
     dev = xq.device
-    for name, t, nd in (("xq", xq, 2), ("support.hi", support.hi, 2),
+    check_kernel_operand("xq", xq, 2, dev, (torch.float32, torch.bfloat16))
+    bf16 = xq.dtype == torch.bfloat16
+    for name, t, nd in (("support.hi", support.hi, 2),
                         ("support.lo", support.lo, 2),
                         ("support.ss", support.ss, 1), ("a_ext", a_ext, 2),
                         ("gamma", gamma, 0)):
@@ -166,7 +176,7 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.kpca_project(
-            ptr(xq), ptr(support.hi), ptr(support.lo), ptr(support.shift),
+            ptr(xq), int(bf16), ptr(support.hi), ptr(support.lo), ptr(support.shift),
             ptr(a_ext), ptr(support.ss), ptr(gamma),
             ptr(scratch), ptr(cvec), ptr(bvec), ptr(out), b, l, m, mp, cp1,
             slices, int(with_epilogue), float(inv_l), KINDS[spec.kind],
@@ -174,10 +184,14 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
             int(bool(spec.normalize)), stream_of(dev))
     check_launch("project", rc)
     project_tiles.launches += 1
+    project_tiles.bf16_launches += bf16
+    project_tiles.partial_launches += not with_epilogue
     return out
 
 
 project_tiles.launches = 0
+project_tiles.bf16_launches = 0      # of launches: bf16 query slabs
+project_tiles.partial_launches = 0   # of launches: raw partials, no epilogue
 
 __all__ = ["CP1_MAX", "Support", "prepare_support", "project_tiles",
            "split_tf32", "support_chunking"]

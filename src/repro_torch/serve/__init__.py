@@ -1,9 +1,17 @@
-from .batching import (EngineStats, RequestQueue, RequestStats,
-                       SlotFuture, bucket_for, iter_slabs,
-                       pack_slabs, pow2_buckets)
+from .batching import (EngineStats, FlushSlots, QueueFullError, Request,
+                       RequestFuture, RequestQueue, RequestStats, ShedError,
+                       SlabArena, SlotFuture, bucket_for, format_latency,
+                       iter_slabs, pack_slabs, pow2_buckets)
 from .kpca_engine import KpcaEngine, KpcaServeConfig
-from .publisher import ModelHandle
+from .publisher import BackgroundPublisher, ModelHandle, stream_chunks
+from .sharded import (POLICIES, CrossoverTable, ShardedRouter, ShardedScores,
+                      measure_crossover, place_sharded_model, project_sharded)
 
-__all__ = ["EngineStats", "KpcaEngine", "KpcaServeConfig", "ModelHandle",
-           "RequestQueue", "RequestStats", "SlotFuture",
-           "bucket_for", "iter_slabs", "pack_slabs", "pow2_buckets"]
+__all__ = ["BackgroundPublisher", "CrossoverTable", "EngineStats",
+           "FlushSlots", "KpcaEngine", "KpcaServeConfig", "ModelHandle",
+           "POLICIES", "QueueFullError", "Request", "RequestFuture",
+           "RequestQueue", "RequestStats", "ShardedRouter", "ShardedScores",
+           "ShedError", "SlabArena", "SlotFuture", "bucket_for",
+           "format_latency", "iter_slabs", "measure_crossover",
+           "pack_slabs", "place_sharded_model", "pow2_buckets",
+           "project_sharded", "stream_chunks"]

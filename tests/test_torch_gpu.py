@@ -618,3 +618,206 @@ def test_baselines_and_topk_on_card_match_cpu(cuda):
         torch.einsum("jn,jnm,jm->j", a1, k, a1)
         * torch.einsum("jn,jnm,jm->j", a2, k, a2))
     assert bool(torch.isfinite(a2).all()) and float(cos.abs().max()) < 0.25
+
+
+# ---- the serving stack on the card: bf16 slabs, partials, async, sharded ---
+
+def _served_model(cuda, l, seed=1):
+    from repro_torch.core import oos
+    from repro_torch.data import node_dataset
+    _, pooled = node_dataset(4, l // 4, m=784, seed=seed)
+    alpha = np.random.default_rng(seed).normal(size=l).astype(np.float32)
+    return oos.from_dual(pooled, alpha * 1e-3, KernelSpec(), device=cuda)
+
+
+@pytest.mark.parametrize("b", [1, 8, 77, 128])
+@pytest.mark.parametrize("l", [500, 2000])
+def test_project_bf16_queries_bitwise_fp32_of_widened(cuda, b, l):
+    """A bf16 query batch through the bf16 instance of the split pass
+    gives the bits of its widened fp32 copy, and counts as a bf16 launch."""
+    from repro_torch.core import oos
+    from repro_torch.data import kpca_dataset
+    model = _served_model(cuda, l)
+    project = oos.projector(model)
+    xq = torch.as_tensor(kpca_dataset(b, m=784, seed=b), device=cuda)
+    xb = xq.bfloat16()
+    n0 = project_tiles.bf16_launches
+    got = project(xb)
+    assert project_tiles.bf16_launches == n0 + 1
+    want = project(xb.float())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = project_reference(model.spec, xb, model.x_support, model.coefs,
+                              model.row_mean_coef, model.bias, model.gamma)
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+def test_partial_projector_on_card(cuda, kind):
+    """The per-shard partial projector: the support split once (one
+    ``prepare_support`` launch at build, none per call), each call one
+    raw-partial kernel launch, against the plain version; bf16 queries
+    give their widened copy's bits."""
+    from repro_torch.kernels import partial_projector, prepare_support
+    spec = SPECS[kind]
+    xs = _rand((300, 784), 3, cuda, 1.0 / 28)
+    ext = torch.cat([_rand((300, 2), 4, cuda), torch.ones((300, 1),
+                                                          device=cuda)], 1)
+    ext[250:, -1] = 0.0
+    s0 = prepare_support.launches
+    fn = partial_projector(spec, xs, ext)
+    assert prepare_support.launches == s0 + 1
+    xq = _rand((40, 784), 5, cuda, 1.0 / 28)
+    p0 = project_tiles.partial_launches
+    got = fn(xq)
+    got_b = fn(xq.bfloat16())
+    want_b = fn(xq.bfloat16().float())
+    torch.cuda.synchronize()
+    assert prepare_support.launches == s0 + 1
+    assert project_tiles.partial_launches == p0 + 3
+    assert torch.equal(got_b, want_b)
+    want = project_partial_reference(spec, xq, xs, ext)
+    scale = torch.clamp(want.abs(), min=1.0)
+    assert float(((got - want).abs() / scale).max()) <= 2e-4
+
+
+def _stream(n, seed=0):
+    from repro_torch.data import kpca_dataset
+    rng = np.random.default_rng(seed)
+    return [kpca_dataset(int(q), m=784, seed=seed * 1000 + i)
+            for i, q in enumerate(rng.integers(1, 70, n))]
+
+
+def _submit_all(engine, reqs, threads=4):
+    import threading
+    futs = [None] * len(reqs)
+
+    def submit(idx):
+        for i in idx:
+            futs[i] = engine.submit(reqs[i])
+
+    ts = [threading.Thread(target=submit, args=(range(t, len(reqs),
+                                                      threads),))
+          for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    return [f.result(timeout=60) for f in futs]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_async_engine_on_card_bitwise_vs_sync(cuda, dtype):
+    """Four submitter threads against the started engine (flusher and
+    device-runner threads on the engine's stream, pinned staging, a small
+    arena that wraps often): every request bitwise the
+    synchronous engine's on it alone, within 2e-4 of the plain projection
+    (of the bf16-rounded queries for bf16 slabs)."""
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig
+    model = _served_model(cuda, 500)
+    cfg = KpcaServeConfig(max_batch=64, min_bucket=8, arena_factor=1,
+                          query_dtype=dtype)
+    reqs = _stream(120)
+    with KpcaEngine(model, cfg, device=cuda) as eng:
+        assert eng._arena.pinned
+        assert torch.from_numpy(eng._arena.buf).is_pinned()
+        got = _submit_all(eng, reqs)
+    sync = KpcaEngine(model, cfg, device=cuda)
+    assert eng.stats.n_compiles == 0 and eng.stats.n_donated > 0
+    assert eng._arena.stats()["live_runs"] == 0
+    for req, g in zip(reqs, got):
+        np.testing.assert_array_equal(g, sync.project_many([req])[0])
+        xq = torch.as_tensor(req, device=cuda)
+        if dtype is not None:
+            xq = xq.bfloat16()
+        plain = project_reference(model.spec, xq, model.x_support,
+                                  model.coefs, model.row_mean_coef,
+                                  model.bias, model.gamma)
+        np.testing.assert_allclose(g, plain.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_bf16_engine_bitwise_vs_fp32_engine_of_rounded(cuda):
+    """bf16 slabs: the same bits as the fp32 engine fed the bf16-rounded
+    queries, at half the host-to-card bytes."""
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig
+    model = _served_model(cuda, 2000)
+    reqs = _stream(40, seed=3)
+    rounded = [torch.as_tensor(r).bfloat16().float().numpy() for r in reqs]
+    e_b = KpcaEngine(model, KpcaServeConfig(query_dtype=torch.bfloat16),
+                     device=cuda)
+    e_f = KpcaEngine(model, KpcaServeConfig(), device=cuda)
+    n0 = project_tiles.bf16_launches
+    got, want = e_b.project_many(reqs), e_f.project_many(rounded)
+    assert project_tiles.bf16_launches > n0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert 2 * e_b.stats.n_h2d_bytes == e_f.stats.n_h2d_bytes > 0
+
+
+@pytest.mark.parametrize("routing", ["auto", "single", "mp", "dp"])
+@pytest.mark.parametrize("budget", [None, 125])
+def test_sharded_engine_on_card(cuda, routing, budget):
+    """A 4-shard model (and its 125-landmark-per-shard compression,
+    formed through gram on the card) served over [card, card]: every
+    request within 3e-4 of the unsharded plain projection (of the
+    compressed model's gathered form where compressed); auto routes
+    single; steady drains hit the placement cache and never re-split a
+    support."""
+    from repro_torch.core import oos
+    from repro_torch.kernels import prepare_support
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig
+    full = _served_model(cuda, 2000)
+    g0 = gram_tiles.launches
+    sh, _ = oos.shard_fitted(full, 4, landmarks_per_shard=budget)
+    assert (gram_tiles.launches > g0) == (budget is not None)
+    ref = oos.gather_fitted(sh) if budget else full
+    eng = KpcaEngine(sh, KpcaServeConfig(max_batch=64, min_bucket=8,
+                                         routing=routing),
+                     device=cuda, mesh=[cuda, cuda])
+    eng.warmup()
+    s0, p0 = prepare_support.launches, project_tiles.partial_launches
+    reqs = _stream(30, seed=5)
+    with eng:
+        got = _submit_all(eng, reqs)
+    assert prepare_support.launches == s0
+    assert project_tiles.partial_launches > p0
+    assert eng.router.n_placement_hits > 0
+    want_policy = "single" if routing == "auto" else routing
+    assert getattr(eng.stats, f"n_routed_{want_policy}") > 0
+    for req, g in zip(reqs, got):
+        plain = project_reference(
+            ref.spec, torch.as_tensor(req, device=cuda), ref.x_support,
+            ref.coefs, ref.row_mean_coef, ref.bias, ref.gamma)
+        np.testing.assert_allclose(g, plain.cpu().numpy(), rtol=3e-4,
+                                   atol=3e-4)
+
+
+def test_router_on_card_refuses_a_cpu_shard(cuda):
+    from repro_torch.core import oos
+    from repro_torch.serve import KpcaEngine
+    sh, _ = oos.shard_fitted(_served_model(cuda, 500), 2)
+    with pytest.raises(ValueError, match="all be CUDA"):
+        KpcaEngine(sh, device=cuda, mesh=[cuda, torch.device("cpu")])
+
+
+def test_kernels_launch_on_every_card(cuda):
+    """Kernels that opt in to more than 48 KB of shared memory do so per
+    card: after a launch on the first card, the same kernels launch on
+    every other card (a once-per-process opt-in failed there with CUDA
+    error 1). Skips on a one-card host."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    spec = KernelSpec(kind="rbf", gamma=0.01)
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        x = _rand((300, 784), 1, dev, 0.05)
+        got = gram_op(spec, x)
+        torch.testing.assert_close(got, gram_reference(spec, x), rtol=2e-4,
+                                   atol=2e-4)
+        xs, co = _rand((2000, 784), 2, dev, 0.05), _rand((2000, 1), 3, dev)
+        xq = _rand((64, 784), 4, dev, 0.05)
+        torch.testing.assert_close(project_op(spec, xq, xs, co),
+                                   project_reference(spec, xq, xs, co),
+                                   rtol=2e-4, atol=2e-4)

@@ -251,7 +251,8 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                           ((0, 5, 0), 8, 8)])
 def test_batching_matches_jax(sizes, max_batch, min_bucket):
     """Buckets and head-to-tail slabs are the JAX package's
-    (``iter_slabs``); ``pack_slabs``'s plan re-assembles every request."""
+    (``iter_slabs``); ``pack_slabs``'s slabs and plan are the JAX
+    package's, and the plan re-assembles every request."""
     from repro.serve import batching as j_batching
     from repro_torch.serve import batching
     buckets = batching.pow2_buckets(min_bucket, max_batch)
@@ -269,7 +270,13 @@ def test_batching_matches_jax(sizes, max_batch, min_bucket):
         np.testing.assert_array_equal(s_t, s_j)
         assert k_t == k_j
         np.testing.assert_array_equal(o_t, o_j)
-    slabs, plan = batching.pack_slabs(mine, max_batch, buckets)
+    slabs, plan, frames = batching.pack_slabs(mine, max_batch, buckets)
+    j_slabs, j_plan, _ = j_batching.pack_slabs(theirs, max_batch, buckets,
+                                               None)
+    assert plan == j_plan and not frames
+    for (s_t, k_t, z_t), (s_j, k_j, z_j) in zip(slabs, j_slabs):
+        np.testing.assert_array_equal(s_t, s_j)
+        assert (k_t, z_t) == (k_j, z_j)
     for e, segs in zip(mine, plan):
         rows = [slabs[si][0][row:row + m] for si, row, _off, m in segs]
         got = np.concatenate(rows) if rows else np.zeros((0, 3), np.float32)
