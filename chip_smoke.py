@@ -18,7 +18,9 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            operations over 67 TFLOP/s fp32, or for gram and project 3 x TF32
            products over 495 TFLOP/s, a self-Gram counting n(n+1)/2 pairs);
            gram and project are also held to fp32 grade (within 2x the plain
-           version's error against float64);
+           version's error against float64); bf16 input to gram (the setup's
+           batch) and to project (the served slabs) must give the bits of
+           the widened fp32 input;
   fit      the paper's Fig. 3/5 configuration: J=20 nodes x N=100 samples x
            M=784, ring(20, hops=2), global centering, 30 ADMM iterations,
            central kPCA on the pooled 2000 x 784; similarity at 1/10/30;
@@ -56,17 +58,34 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            landmarks a shard, through the engine: routing "auto" ("single"
            on one card), then "mp" and "dp" over [card, card]; every
            request within 3e-4 of the unsharded plain projection; the
-           placement cache's hits and no support split in steady drains.
+           placement cache's hits and no support split in steady drains;
+  faults   the fault-tolerant fit at the fit's size, 40 iterations in chunks
+           of 10, with a communication ledger, under two dropouts at t=15
+           (nodes 3 and 7), link loss (0-2, t 5-12), a link delay (10-12, t
+           8-12) and a straggler (node 16, t 10-14): t, the re-knit, the
+           survivors, the events, the survivors' similarity to their pooled
+           central kPCA (mean >= 0.99, min >= 0.95) and the ledger's bytes
+           and messages (the JAX package's numbers for this plan), then the
+           fit's breakdown; then fault-injected serving: the consensus
+           model in 4 shards through the started engine under a shard loss
+           at the first dispatch (1024 requests from 4 client threads:
+           every future resolves within 30 s, a failure only as a typed
+           FaultError, one re-balance publish, the survivors' scores within
+           3e-4 of the plain projection of the gathered survivor model),
+           two transient faults healed by retries, and a publisher whose
+           first job crashes while the engine serves the stale version.
 
-Each path (fit and serve; baselines; top-k; serve_async; serve_sharded) is
-driven with every kernel's launch count zeroed just before it and read just
-after; a kernel the path must run and never launched fails the run (the
-kernels, breakdown and serve_stream phases count nowhere). Project's
-launches are also counted by kind: bf16 slabs, raw partials, support
-splits. The summary's ``launches`` is the fit and serve path's. Device
-times per call come from profiler traces whose recorded launches are
-checked against the calls made. The last lines are the kernels summary object, the
-nvidia-smi line, and
+Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
+faults) is driven with every kernel's launch count zeroed just before it
+and read just after; a kernel the path must run and never launched fails
+the run (the kernels, breakdown and serve_stream phases count nowhere,
+nor do the references a path's checks compute after its count is read).
+Gram's launches with a bf16 operand are also counted, and project's by
+kind: bf16 slabs, raw partials, support splits. The summary's
+``launches`` is the fit and serve path's. Device times per call come from
+profiler traces whose recorded launches are checked against the calls
+made. The last lines are the kernels summary object, the nvidia-smi line,
+and
 ``{"ok": true, "device": {...}}``. A failed check is reported and the run
 goes on, so one run shows every phase; it then exits non-zero before the
 summary. An exception (a failed build, a launch error) ends the run at
@@ -101,6 +120,11 @@ ASYNC_QUEUE_FACTOR = 8         # its admission bound: 8 full slabs of rows
 ASYNC_RETRY_S = 1e-3           # a refused client's sleep before it retries
 SHARDED_REQUESTS = 1024        # serve_sharded's requests per run
 SHARDED_TOL = 3e-4             # the reference's sharded tolerance
+FAULT_WAIT_S = 30.0            # faults: every future resolved within this
+# the JAX package's ledger for the faults phase's plan on this fit (CPU):
+# per iteration after the re-knit, and totals over the 40 iterations
+FAULT_LEDGER = dict(per_iter=(76800, 192), setup=(0, 0),
+                    totals=(3072000, 7680), iterations=40)
 
 
 class SmokeFailure(RuntimeError):
@@ -239,7 +263,9 @@ def hgmma_by_function(sass: str) -> dict:
 def gram_record(spec, x, g, label, y=None):
     """What ``gram_op`` launches on the card (split passes and the
     tensor-core kernel) for a (Z, n, m) batch x against y (Z, k, m), or
-    against x itself (y=None: symmetric tiles, K must equal K^T exactly)."""
+    against x itself (y=None: symmetric tiles, K must equal K^T exactly).
+    A bf16 x takes the split pass's bf16 instance, which must give the
+    bits of the widened fp32 batch."""
     import torch
     from repro_torch.kernels import gram_reference, gram_tiles
 
@@ -255,8 +281,16 @@ def gram_record(spec, x, g, label, y=None):
     if not cross:
         check(torch.equal(got, got.mT), f"gram {label}: self-Gram not "
                                         f"exactly symmetric")
+    extra = {}
+    if x.dtype == torch.bfloat16:
+        widened = gram_tiles(spec, x.float(), y, g)
+        torch.cuda.synchronize()
+        extra["bitwise_vs_widened_fp32"] = bool(torch.equal(got, widened))
+        check(extra["bitwise_vs_widened_fp32"],
+              f"gram {label}: not the bits of its widened input")
     pairs = z * n * k if cross else z * n * (n + 1) // 2
-    nbytes = 4 * (z * n * m + cross * z * k * m + z * n * k + 1)
+    nbytes = x.element_size() * z * n * m + 4 * (
+        cross * z * k * m + z * n * k + 1)
     b_ms, b_by = bound(flops=3 * 2 * pairs * m, nbytes=nbytes,
                        peak=PEAK_TF32_FLOPS)
     kern = device_kernels(torch, run, label=f"gram {label}")
@@ -270,7 +304,7 @@ def gram_record(spec, x, g, label, y=None):
           f"gram {label}: error against float64 {fp64_err:.3g} > 2 x the "
           f"plain version's {fp64_err_plain:.3g}")
     return dict(
-        shape=label, **errors(got, want),
+        shape=label, **errors(got, want), **extra,
         fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 20),
         device_ms=sum(v for key, v in kern.items()
@@ -279,9 +313,9 @@ def gram_record(spec, x, g, label, y=None):
         plain_ms=event_ms(torch, lambda: gram_reference(spec, x, y, gamma=g),
                           20),
         library_ms=event_ms(torch, lambda: torch.exp(
-            torch.cdist(x, yy).square_().mul_(-g)), 20),
-        matmul_ms=event_ms(torch, lambda: torch.matmul(x, yy.transpose(1, 2)),
-                           20),
+            torch.cdist(x.float(), yy.float()).square_().mul_(-g)), 20),
+        matmul_ms=event_ms(torch, lambda: torch.matmul(
+            x.float(), yy.float().transpose(1, 2)), 20),
         bound_ms=b_ms, bound_by=b_by,
         bound_fp32_ms=bound(flops=z * n * k * (2 * m + 4), nbytes=nbytes)[0])
 
@@ -447,6 +481,9 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
                     "100x2000x784", y=pooled_t[None].contiguous()),
         gram_record(spec, marks[None].contiguous(), g, "500x2000x784",
                     y=pooled_t[None].contiguous())]}
+    # bf16 input: the split pass's bf16 instance, on the setup's batch
+    records["gram_bf16"] = [gram_record(spec, slots.bfloat16().contiguous(),
+                                        g, "20x500x500x784xbf16")]
 
     # project: the served models' real coefficients and centering terms (a
     # central fit on the pooled data, and its 500-landmark compression)
@@ -516,6 +553,7 @@ def launch_counters() -> dict:
                                      gram_tiles, prepare_support,
                                      project_tiles)
     return {"gram": (gram_tiles, "launches"),
+            "gram_bf16": (gram_tiles, "bf16_launches"),
             "project": (project_tiles, "launches"),
             "center": (center_tiles, "launches"),
             "admm_step": (admm_local_update, "launches"),
@@ -797,7 +835,8 @@ STAT_FIELDS = ("n_requests", "n_queries", "n_padded", "n_rejected", "n_shed",
 
 
 def run_async(engine, requests, threads: int = ASYNC_THREADS, midway=None,
-              log=None, retry_s: float = ASYNC_RETRY_S) -> dict:
+              log=None, retry_s: float = ASYNC_RETRY_S,
+              timeout: float = 120.0) -> dict:
     """The stream through a started engine from ``threads`` client threads
     (request i from thread i % threads, in order). A submit refused by
     admission control is retried by its client after a short sleep, and
@@ -805,7 +844,8 @@ def run_async(engine, requests, threads: int = ASYNC_THREADS, midway=None,
     requests. Returns every request's scores (or its exception), the wall
     seconds from the first submit to the last result, the refused submits,
     the request ids, and this run's engine counters and latency
-    percentiles; appended to ``log`` too."""
+    percentiles; appended to ``log`` too. Results are awaited until one
+    shared deadline, ``timeout`` seconds after the last submit."""
     import threading
     from repro_torch.serve import QueueFullError
     futs = [None] * len(requests)
@@ -833,10 +873,12 @@ def run_async(engine, requests, threads: int = ASYNC_THREADS, midway=None,
     for c in clients:
         c.join()
     outs = []
+    deadline = time.monotonic() + timeout
     for f in futs:
         try:
-            outs.append(f.result(timeout=120))
-        except Exception as e:          # deadline runs: the typed error
+            outs.append(f.result(timeout=max(0.0,
+                                             deadline - time.monotonic())))
+        except Exception as e:          # deadline and fault runs: the error
             outs.append(e)
     wall = time.perf_counter() - t0
     # the last drain's accounting follows its futures' resolution
@@ -1163,6 +1205,219 @@ def phase_serve_sharded(dev, full) -> dict:
     return launches
 
 
+def fault_plan():
+    """The faults phase's plan on the fit's ring(20, hops=2)."""
+    from repro_torch.faults import (FaultPlan, LinkFault, NodeDropout,
+                                    StragglerStall, link_delay)
+    return FaultPlan(seed=3,
+                     dropouts=(NodeDropout(t=15, node=3),
+                               NodeDropout(t=15, node=7)),
+                     links=(LinkFault(t0=5, t1=12, u=0, v=2),
+                            link_delay(8, 4, u=10, v=12)),
+                     stragglers=(StragglerStall(t0=10, t1=14, node=16),))
+
+
+def fault_fit(dev, spec, nodes, ledger=None):
+    """The fault-tolerant fit of the faults phase, run to its end."""
+    from repro_torch.core import ring
+    from repro_torch.faults import FaultTolerantRun
+    run = FaultTolerantRun(nodes, ring(20, hops=2), spec, fault_plan(),
+                           n_iters=40, chunk=10, ledger=ledger, device=dev)
+    chunks = list(run.chunks())
+    return run, chunks
+
+
+def phase_faults(dev, spec, nodes, full) -> dict:
+    """The fault-tolerant fit and fault-injected serving on the card.
+
+      * fit: ``fault_fit`` with a ``CommLedger``: t, one re-knit, the
+        survivors, the events in order, the ledger against the JAX
+        package's numbers; after the launch counts are read, the
+        survivors' similarity to the central kPCA of their pooled data
+        (the run's pinned gamma) and the fit's breakdown;
+      * shard loss: ``shard_fitted(full, 4)`` behind a ``ModelHandle``,
+        through the started engine with a ``ShardLossInjector`` (shard 1
+        lost at the first dispatch), a ``ShardRebalancer`` and
+        max_retries=4, 1024 requests of the serve_stream law from 4
+        client threads;
+      * transient faults: ``transient_faults(2)`` under max_retries=3, on
+        the consensus model;
+      * publisher crash: a ``CrashingHandle`` (job 0 crashes) under a
+        ``BackgroundPublisher``: the engine serves version 0 through the
+        crash, and the next job publishes version 1.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.core import central_kpca, oos, similarity
+    from repro_torch.faults import (CrashingHandle, FaultError, FaultPlan,
+                                    InjectedCrashError, PublisherCrash,
+                                    ShardLoss, ShardLossInjector,
+                                    ShardRebalancer, transient_faults)
+    from repro_torch.obs import CommLedger
+    from repro_torch.serve import (BackgroundPublisher, KpcaEngine,
+                                   KpcaServeConfig, ModelHandle)
+    t_phase = time.perf_counter()
+    zero_launches()
+
+    # -- the fault-tolerant fit ---------------------------------------------
+    ledger = CommLedger()
+    t0 = time.perf_counter()
+    run, chunks = fault_fit(dev, spec, nodes, ledger)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    survivors = [int(v) for v in run.node_ids]
+    events = [e.kind for e in run.events]
+    tot = ledger.totals()
+    got_ledger = dict(
+        per_iter=(ledger.per_iter.bytes, ledger.per_iter.messages),
+        setup=(ledger.setup.bytes, ledger.setup.messages),
+        totals=(tot.bytes, tot.messages), iterations=ledger.iterations)
+    check(run.state.t == 40 and run.n_reknits == 1,
+          f"faults fit: t={run.state.t}, {run.n_reknits} re-knits")
+    check(survivors == [j for j in range(20) if j not in (3, 7)],
+          f"faults fit: survivors {survivors}")
+    check(events == ["link", "link", "straggler", "dropout"],
+          f"faults fit: events {events}")
+    check(bool(torch.isfinite(run.state.alpha).all()),
+          "faults fit: non-finite alpha")
+    check(got_ledger == FAULT_LEDGER,
+          f"faults fit: ledger {got_ledger}, the JAX package's "
+          f"{FAULT_LEDGER}")
+
+    # -- shard loss under load ----------------------------------------------
+    requests = stream_requests(SHARDED_REQUESTS, seed=17)
+    sharded, _ = oos.shard_fitted(full, 4)
+    handle = ModelHandle(sharded)
+    injector = ShardLossInjector(FaultPlan(
+        shard_losses=(ShardLoss(at_dispatch=0, shard=1),)))
+    rebalancer = ShardRebalancer()
+    cfg = dict(max_batch=128, min_bucket=8)
+    t1 = time.perf_counter()
+    with KpcaEngine(handle, KpcaServeConfig(max_retries=4,
+                                            retry_backoff_s=0.005, **cfg),
+                    device=dev, inject_fault=injector,
+                    on_fault=rebalancer) as eng:
+        loss = run_async(eng, requests, timeout=FAULT_WAIT_S)
+        retries = eng.stats.n_retries
+    shard_s = time.perf_counter() - t1
+    failed = [o for o in loss["outs"] if isinstance(o, Exception)]
+    served = [(q, o) for q, o in zip(requests, loss["outs"])
+              if not isinstance(o, Exception)]
+    survivor = oos.gather_fitted(oos.drop_shard(sharded, 1))
+    loss_err = max_err_vs_plain(dev, survivor, [q for q, _ in served],
+                                [o for _, o in served]) if served else None
+    versions = sorted(set(loss["versions"].values()))
+    check(len(loss["outs"]) == len(requests)
+          and all(isinstance(e, FaultError) for e in failed),
+          f"faults serve: unresolved or untyped failures "
+          f"{sorted({type(e).__name__ for e in failed})}")
+    check(rebalancer.n_rebalances == 1 and injector.n_raised >= 1,
+          f"faults serve: {rebalancer.n_rebalances} re-balances, "
+          f"{injector.n_raised} injected losses")
+    check(handle.version == 1 and handle.current().shard_sizes[1] == 0,
+          f"faults serve: version {handle.version}, shard sizes "
+          f"{handle.current().shard_sizes}")
+    check(bool(served) and loss_err <= SHARDED_TOL,
+          f"faults serve: {len(served)} served, error {loss_err} against "
+          f"the survivor model > {SHARDED_TOL}")
+
+    # -- transient faults, healed by retries ----------------------------------
+    few = requests[:64]
+    with KpcaEngine(full, KpcaServeConfig(max_retries=3,
+                                          retry_backoff_s=0.001, **cfg),
+                    device=dev, inject_fault=transient_faults(2)) as eng:
+        healed = run_async(eng, few, timeout=FAULT_WAIT_S)
+        healed_retries = eng.stats.n_retries
+    healed_bad = [o for o in healed["outs"] if isinstance(o, Exception)]
+    healed_err = max_err_vs_plain(dev, full, few, healed["outs"]) \
+        if not healed_bad else None
+    check(not healed_bad and healed_retries == 2 and healed_err <= TOL,
+          f"faults transient: {len(healed_bad)} failed, {healed_retries} "
+          f"retries, error {healed_err}")
+
+    # -- a publisher crash: the engine serves the stale version --------------
+    alpha = -2.0 * full.coefs
+    base = ModelHandle(full)
+    crashing = CrashingHandle(base, FaultPlan(
+        publisher_crashes=(PublisherCrash(at_job=0),)))
+    crashed = False
+    with KpcaEngine(base, KpcaServeConfig(**cfg), device=dev) as eng, \
+            BackgroundPublisher(crashing) as pub:
+        pub.refresh(alpha)
+        try:
+            pub.drain(timeout=FAULT_WAIT_S)
+        except InjectedCrashError:
+            crashed = True
+        stale = run_async(eng, few, timeout=FAULT_WAIT_S)
+        pub.refresh(alpha)
+        pub.drain(timeout=FAULT_WAIT_S)
+        fresh = run_async(eng, few, timeout=FAULT_WAIT_S)
+    stale_v = sorted(set(stale["versions"].values()))
+    fresh_v = sorted(set(fresh["versions"].values()))
+    bad = [o for o in stale["outs"] + fresh["outs"]
+           if isinstance(o, Exception)]
+    errs = (None, None) if bad else (
+        max_err_vs_plain(dev, full, few, stale["outs"]),
+        max_err_vs_plain(dev, oos.refresh_coefficients(full, alpha), few,
+                         fresh["outs"]))
+    check(crashed and crashing.n_crashes == 1 and not bad
+          and stale_v == [0] and fresh_v == [1] and max(errs) <= TOL,
+          f"faults publisher: crashed {crashed} ({crashing.n_crashes}), "
+          f"{len(bad)} failed, versions {stale_v} then {fresh_v}, errors "
+          f"{errs}")
+    launches = read_launches("faults", ("gram", "admm_step", "project",
+                                        "project_partial"))
+
+    # -- the fit's quality (after the count: the central kPCA and the
+    # similarities launch gram and center for the check, not the path) -------
+    t0 = time.perf_counter()
+    x = run.x_nodes
+    pooled = x.reshape(-1, x.shape[-1])
+    a_gt, _, _ = central_kpca(pooled, spec, 1, gamma=run.gamma, device=dev)
+    sims = [float(similarity(run.state.alpha[j], x[j], a_gt[:, 0], pooled,
+                             spec, gamma=run.gamma))
+            for j in range(x.shape[0])]
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    check(sum(sims) / len(sims) >= SIM30_MIN and min(sims) >= 0.95,
+          f"faults fit: survivor similarity mean "
+          f"{sum(sims) / len(sims):.5f} (>= {SIM30_MIN}), min "
+          f"{min(sims):.5f} (>= 0.95)")
+
+    # -- where the fit's time goes (after the count) -------------------------
+    breakdown = phase_breakdown(torch, lambda: fault_fit(dev, spec, nodes))
+    emit("faults",
+         fit=dict(nodes=20, per_node=100, features=784, iterations=40,
+                  chunk=10, plan=fault_plan().to_dict(), t=run.state.t,
+                  reknits=run.n_reknits, survivors=survivors, events=events,
+                  chunk_lengths=[int(c.alpha_hist.shape[0]) for c in chunks],
+                  chunk_comm_bytes=[c.comm_bytes for c in chunks],
+                  similarity_mean=sum(sims) / len(sims),
+                  similarity_min=min(sims), ledger=ledger.snapshot(),
+                  fit_s=fit_s, score_s=score_s,
+                  breakdown=breakdown),
+         shard_loss=dict(requests=len(requests),
+                         rows=sum(q.shape[0] for q in requests),
+                         served=len(served), failed=len(failed),
+                         failed_types=sorted({type(e).__name__
+                                              for e in failed}),
+                         rebalances=rebalancer.n_rebalances,
+                         injected=injector.n_raised,
+                         dispatches=injector.dispatches, retries=retries,
+                         version=handle.version, versions_served=versions,
+                         shard_sizes=list(handle.current().shard_sizes),
+                         max_abs_err=loss_err, tolerance=SHARDED_TOL,
+                         wall_s=loss["wall"], phase_s=shard_s),
+         transient=dict(requests=len(few), retries=healed_retries,
+                        failed=len(healed_bad), max_abs_err=healed_err),
+         publisher=dict(crashed=crashed, crashes=crashing.n_crashes,
+                        stale_versions=stale_v, fresh_versions=fresh_v,
+                        max_abs_err_stale=errs[0],
+                        max_abs_err_fresh=errs[1]),
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     """Nodes whose init="local" warm start v1/sqrt(lam1) points against the
     central component, counted on the smaller side (the global sign is
@@ -1321,6 +1576,7 @@ def main() -> int:
     sync = phase_serve_stream(dev, served)
     path_launches["serve_async"] = phase_serve_async(dev, served, sync)
     path_launches["serve_sharded"] = phase_serve_sharded(dev, loaded)
+    path_launches["faults"] = phase_faults(dev, spec, nodes, loaded)
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")
@@ -1353,12 +1609,13 @@ def main() -> int:
             **({"bound_fp32_ms": r["bound_fp32_ms"],
                 "matmul_ms": r["matmul_ms"]} if name in ("gram", "project")
                else {})))
-    # project's bf16 instance (the served bf16 slabs) and its launches by
-    # kind on every path
+    # gram's and project's bf16 instances (bf16 operands, the served bf16
+    # slabs), and project's launches by kind on every path
+    keys = ("shape", "max_abs_err", "bitwise_vs_widened_fp32", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by")
+    summary[0]["bf16"] = {k: records["gram_bf16"][0][k] for k in keys}
     bf16 = records["project_bf16"][1]
-    summary[1]["bf16"] = {k: bf16[k] for k in (
-        "shape", "max_abs_err", "bitwise_vs_widened_fp32", "ms",
-        "device_ms", "plain_ms", "bound_ms", "bound_by")}
+    summary[1]["bf16"] = {k: bf16[k] for k in keys}
     summary[1]["launches_by_kind"] = {
         p: {k: c[f"project_{k}"] for k in ("bf16", "partial", "support")}
         for p, c in path_launches.items()}

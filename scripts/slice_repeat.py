@@ -10,6 +10,16 @@ the card's setup, to tell the setup phase from the iterations. The host's
 CPU model and digests of both sides' setup and trajectory are printed, so
 runs on different hosts can be compared.
 
+The CPU side follows the host's MKL code path, which differs between
+hosts. So the CPU run is repeated once more in a fresh process for each
+``MKL_ENABLE_INSTRUCTIONS`` value (AVX512, AVX2, AVX, SSE4_2; MKL reads it
+when it loads), from the same alpha0, and each is held against the card by
+the same gate: one host then shows what other hosts' CPUs would give. Each
+child runs under ``MKL_VERBOSE=1``, and the sweep names the code path MKL
+took in it (MKL_VERBOSE's architecture line); an MKL without a path of its
+own for a value falls back to a lower one (AVX may run the SSE4.2 path),
+which that line shows. The fingerprint names the default process's path.
+
     PYTHONPATH=src python3 scripts/slice_repeat.py [--repeats 4]
 
 Needs a CUDA device; prints one JSON line.
@@ -19,10 +29,17 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import platform
+import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+MKL_ISAS = ("AVX512", "AVX2", "AVX", "SSE4_2")
 
 
 def _moved(setup, device):
@@ -59,10 +76,42 @@ def _cpu_model() -> dict:
     return info
 
 
+def mkl_path(stdout: str) -> str:
+    """MKL's own line naming the code path it took, from the output of a
+    process run under ``MKL_VERBOSE=1``, or why there is none."""
+    for line in stdout.splitlines():
+        if "MKL_VERBOSE" in line and "architecture" in line:
+            return line.split("architecture", 1)[1].strip()[:160]
+    return "no MKL_VERBOSE line (PyTorch's CPU BLAS may not be MKL)"
+
+
+def _slice(device, alpha0):
+    """The test's setup and 10 iterations on ``device`` from alpha0."""
+    from repro_torch.core import KernelSpec, build_setup, ring, run_admm
+    from repro_torch.data import node_dataset
+    nodes, _ = node_dataset(6, 40, m=784, seed=0)
+    s = build_setup(nodes, ring(6, 1), KernelSpec(), device=device)
+    r = run_admm(s, n_iters=10, alpha0=alpha0.to(device))
+    return s, r.alpha_hist.cpu()
+
+
+def _cpu_child(workdir: str) -> int:
+    """One CPU run in this process (its MKL path fixed at load): reads
+    alpha0, writes alpha_hist and the setup's digest beside it."""
+    d = Path(workdir)
+    s, hist = _slice("cpu", torch.load(d / "alpha0.pt"))
+    torch.save(hist, d / "alpha_hist.pt")
+    (d / "setup.txt").write_text(_digest(s.k, s.lam, s.vec))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeats", type=int, default=4)
+    ap.add_argument("--cpu-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cpu_child:
+        return _cpu_child(args.cpu_child)
     if not torch.cuda.is_available():
         print("slice_repeat: needs a CUDA device", file=sys.stderr)
         return 1
@@ -76,9 +125,7 @@ def main() -> int:
                                        device="cpu"), "local")
 
     def run(device):
-        s = build_setup(nodes, ring(6, 1), spec, device=device)
-        r = run_admm(s, n_iters=10, alpha0=alpha0.to(device))
-        return s, r.alpha_hist.cpu()
+        return _slice(device, alpha0)
 
     def gate(got, want):
         """Entries past the test's gate, and the largest gap."""
@@ -131,7 +178,35 @@ def main() -> int:
         "cpu_setup": _digest(ref_setup.k, ref_setup.lam, ref_setup.vec),
         "cpu_alpha_hist": _digest(ref),
         "card_setup": _digest(s_card.k, s_card.lam, s_card.vec),
-        "card_alpha_hist": _digest(card[0][1])}
+        "card_alpha_hist": _digest(card[0][1]),
+        "mkl_available": torch.backends.mkl.is_available()}
+    # the CPU side under MKL's default and each chosen code path, in a
+    # fresh process each
+    sweep = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for isa in (None,) + MKL_ISAS:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            torch.save(alpha0, Path(d) / "alpha0.pt")
+            env = dict(os.environ, MKL_VERBOSE="1")
+            if isa is not None:
+                env["MKL_ENABLE_INSTRUCTIONS"] = isa
+            done = subprocess.run(
+                [sys.executable, __file__, "--cpu-child", d], env=env,
+                capture_output=True, text=True, timeout=600)
+            key = isa or "default"
+            if done.returncode != 0:
+                sweep[key] = {"error": done.stderr.strip()[-400:]}
+                continue
+            hist = torch.load(Path(d) / "alpha_hist.pt")
+            sweep[key] = {
+                "mkl_path": mkl_path(done.stdout),
+                "cpu_setup": (Path(d) / "setup.txt").read_text(),
+                "cpu_alpha_hist": _digest(hist),
+                "vs_default_cpu_max_gap": float((hist - ref).abs().max()),
+                "card_vs_this_cpu_past_gate": gate(card[0][1], hist)}
+    out["fingerprint"]["mkl_path"] = sweep["default"].get(
+        "mkl_path", "not run")
+    out["mkl_sweep"] = sweep
     print(json.dumps(out), flush=True)
     return 0
 

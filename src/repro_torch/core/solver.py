@@ -12,8 +12,10 @@
     one kernel launch for all J nodes on the card;
   * ``run_chunked`` — the resumable driver: a Python loop over iterations
     (the JAX package's jitted ``scan``) that yields the live state every
-    ``chunk`` iterations, with residual-based early stopping and
-    checkpointing.
+    ``chunk`` iterations, with residual-based early stopping,
+    checkpointing, communication accounting (``repro_torch.obs.CommLedger``)
+    and per-iteration link masks (compiled from a
+    ``repro_torch.faults.FaultPlan``).
 
 Everything stays on the setup's device; the host reads a value only for the
 early-stop test.
@@ -24,9 +26,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Iterator, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import metrics, trace
+from ..obs.comm import CommLedger
 from .rho import RhoSchedule
 
 
@@ -82,14 +87,33 @@ class SolverOps:
 
 class DenseComm:
     """All nodes on one device: exchange == advanced indexing by the
-    (src, rsl) slot routing tables."""
+    (src, rsl) slot routing tables.
 
-    def __init__(self, src: torch.Tensor, rsl: torch.Tensor):
+    Communication accounting (``repro_torch.obs.comm``): the driver counts
+    the off-node routing entries (the directed edges an exchange moves data
+    over) on the host and passes them in as ``wire_entries``; each
+    ``exchange`` then reports NETWORK-WIDE payload bytes into the ledger.
+    """
+
+    def __init__(self, src: torch.Tensor, rsl: torch.Tensor,
+                 ledger: Optional[CommLedger] = None,
+                 wire_entries: int = 0):
         self.src, self.rsl = src, rsl
+        self.ledger = ledger
+        self.wire_entries = wire_entries
+
+    def local(self, fn: Callable) -> Callable:
+        """Per-node math: written batched over the leading node axis here
+        (the JAX package ``vmap``s it), so ``fn`` applies as it is."""
+        return fn
 
     def exchange(self, cols: torch.Tensor) -> torch.Tensor:
         """cols: (J, S, N) per-out-slot columns -> (J, S, N) where in-slot s
         of node j receives cols[src[j,s], rsl[j,s]]."""
+        if self.ledger is not None:
+            payload = cols.shape[-1] * cols.element_size()
+            self.ledger.record_exchange(self.wire_entries * payload,
+                                        self.wire_entries)
         return cols[self.src, self.rsl]
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,14 +160,16 @@ def inverse_denominators(lam: torch.Tensor,
                        torch.zeros_like(den))
 
 
-def admm_step(ops: SolverOps, comm: DenseComm, state: AdmmState,
+def admm_step(ops: SolverOps, comm, state: AdmmState,
               rho_slots: torch.Tensor, project: str = "ball",
               slot_mask: Optional[torch.Tensor] = None):
     """One ADMM iteration (paper eq. 10-13, per-slot-rho generalization).
 
     Args:
       ops: per-node constants.
-      comm: transport (``DenseComm``).
+      comm: transport (``DenseComm``, or a ``FaultyComm`` around one); a
+        ledger on it records this iteration's traffic between
+        ``begin_iteration`` and ``end_iteration``.
       state: incoming iterate; only (alpha, b, t) drive the update.
       rho_slots: (J, S) per-node per-slot rho for THIS iteration; zero on
         invalid slots.
@@ -158,6 +184,9 @@ def admm_step(ops: SolverOps, comm: DenseComm, state: AdmmState,
       (state', primal_residual) with the global ||K alpha 1 - G||_F over
       valid slots as a 0-d tensor.
     """
+    ledger = getattr(comm, "ledger", None)
+    if ledger is not None:
+        ledger.begin_iteration()
     faulty = slot_mask is not None
     if faulty:
         ops = dataclasses.replace(ops, mask=ops.mask * slot_mask)
@@ -219,8 +248,11 @@ def admm_step(ops: SolverOps, comm: DenseComm, state: AdmmState,
         alpha_n = alpha_n * gain
         b_n = b_n * gain
 
-    return AdmmState(alpha=alpha_n, b=b_n, g=g, znorm2=znorm2,
-                     t=state.t + 1, rho=rho_slots), res
+    new_state = AdmmState(alpha=alpha_n, b=b_n, g=g, znorm2=znorm2,
+                          t=state.t + 1, rho=rho_slots)
+    if ledger is not None:
+        ledger.end_iteration()
+    return new_state, res
 
 
 def lagrangian(ops: SolverOps, alpha, b, g, rho_slots) -> torch.Tensor:
@@ -245,14 +277,24 @@ def slot_rho(mask: torch.Tensor, rho1: float, rho2: float) -> torch.Tensor:
 
 
 def run_steps(ops: SolverOps, comm: DenseComm, state: AdmmState,
-              rho1s: List[float], rho2s: List[float], project: str):
+              rho1s: List[float], rho2s: List[float], project: str,
+              link_mask: Optional[torch.Tensor] = None):
     """``len(rho2s)`` iterations from ``state`` (the JAX package's scan
-    body as a Python loop). Returns (state, alpha_hist (T, J, N),
-    lagrangian (T,), primal_residual (T,))."""
+    body as a Python loop). ``link_mask`` (T, J, S) {0,1}, or None:
+    row i censors iteration i's links, at the transport (``FaultyComm``)
+    and in the consensus (``admm_step(slot_mask=...)``). Returns (state,
+    alpha_hist (T, J, N), lagrangian (T,), primal_residual (T,))."""
+    if link_mask is not None:
+        from ..faults.comm import FaultyComm
     ahist, lhist, rhist = [], [], []
-    for rho1, rho2 in zip(rho1s, rho2s):
+    for i, (rho1, rho2) in enumerate(zip(rho1s, rho2s)):
         rho_slots = slot_rho(ops.mask, rho1, rho2)
-        new, res = admm_step(ops, comm, state, rho_slots, project)
+        if link_mask is None:
+            new, res = admm_step(ops, comm, state, rho_slots, project)
+        else:
+            sm = link_mask[i]
+            new, res = admm_step(ops, FaultyComm(comm, sm), state,
+                                 rho_slots, project, slot_mask=sm)
         # Theorem-2 pairing: L(alpha^t, Z^t, eta^t) with Z^t generated from
         # the incoming (alpha^t, eta^t) — i.e. this step's g.
         lhist.append(lagrangian(ops, state.alpha, state.b, new.g, rho_slots))
@@ -277,6 +319,10 @@ class ChunkResult:
     rho_hist: torch.Tensor
     ckpt_path: Optional[str] = None
     stopped: bool = False          # residual-based early stop fired here
+    # communication accounting for THIS chunk (0 without a ledger):
+    # point-to-point payload bytes / messages moved by its iterations
+    comm_bytes: int = 0
+    comm_messages: int = 0
 
 
 class EveryK:
@@ -360,15 +406,26 @@ def run_chunked(setup, n_iters: int = 30, chunk: int = 10,
                 project: str = "ball", init: str = "local", seed: int = 0,
                 alpha0: Optional[torch.Tensor] = None,
                 state: Optional[AdmmState] = None, tol: float = 0.0,
-                ckpt_dir: Optional[str] = None, ckpt_every: int = 1
+                ckpt_dir: Optional[str] = None, ckpt_every: int = 1,
+                ledger: Optional[CommLedger] = None,
+                link_mask: Optional[np.ndarray] = None
                 ) -> Iterator[ChunkResult]:
     """Resumable chunked driver for Alg. 1 over the dense transport.
 
     Runs ``chunk`` iterations per step of the generator and yields a
     ``ChunkResult`` after each, so callers can observe, checkpoint, re-tune
-    or publish mid-run. Arguments as in ``repro.core.solver.run_chunked``
-    (the ledger and link-mask options are not ported yet). Advance it from
-    one thread.
+    or publish mid-run. Arguments as in ``repro.core.solver.run_chunked``:
+
+      ledger: a ``repro_torch.obs.CommLedger`` to account each iteration's
+        communication into (network-wide bytes for this dense transport);
+        each yielded chunk then carries ``comm_bytes``/``comm_messages``.
+      link_mask: optional ``(n_iters, J, S)`` {0,1} array censoring links
+        per ABSOLUTE iteration index (``FaultPlan.link_mask``); row t is
+        applied at iteration t through ``admm_step(slot_mask=...)`` and a
+        transport-level ``FaultyComm``.
+
+    Iterations run one at a time, so the trajectory does not depend on
+    ``chunk``. Advance it from one thread.
     """
     from .admm import initial_alpha   # admm imports this module
     if chunk < 1:
@@ -382,26 +439,75 @@ def run_chunked(setup, n_iters: int = 30, chunk: int = 10,
         state = init_state(alpha0, setup.n_slots)
     ops, comm = dense_parts(setup)
     rho1_eff = float(rho1) if setup.include_self else 0.0
+    if link_mask is not None:
+        link_mask = np.asarray(link_mask, np.float32)
+        j, s = setup.src.shape
+        if link_mask.shape != (n_iters, j, s):
+            raise ValueError(
+                f"link_mask shape {link_mask.shape} != {(n_iters, j, s)}")
+    if ledger is not None:
+        # Off-node routing entries = directed edges one exchange moves data
+        # over: slot s of node j is remote iff its source is another node
+        # AND the slot is valid. Counted on the host from the setup tables.
+        src_np = setup.src.cpu().numpy()
+        own = np.arange(src_np.shape[0], dtype=src_np.dtype)[:, None]
+        wire = int(np.sum((src_np != own) & setup.mask.cpu().numpy()))
+        comm = DenseComm(setup.src, setup.rsl, ledger, wire)
+
+    m_iters = metrics.counter(
+        "solver_iterations_total", "ADMM iterations executed",
+        transport="dense")
+    m_chunks = metrics.counter(
+        "solver_chunks_total", "driver chunks yielded", transport="dense")
+    m_bytes = metrics.counter(
+        "comm_bytes_total", "point-to-point ADMM payload bytes",
+        transport="dense")
+    m_res = metrics.gauge(
+        "solver_primal_residual", "last observed primal residual")
 
     t = state.t
     chunk_idx = 0
     while t < n_iters:
         c = min(chunk, n_iters - t)
-        rho2s = [float(rho2_fn(tt)) for tt in range(t, t + c)]
-        state, ahist, lhist, rhist = run_steps(
-            ops, comm, state, [rho1_eff] * c, rho2s, project)
+        with trace.span("solver.rho2", t=t, steps=c):
+            rho2s = [float(rho2_fn(tt)) for tt in range(t, t + c)]
+        lm_chunk = None
+        if link_mask is not None:
+            lm_chunk = torch.as_tensor(link_mask[t:t + c],
+                                       device=setup.device)
+        # The span times the launches; the card runs them asynchronously
+        # (it is awaited where a host value is read, e.g. the residual).
+        with trace.span("solver.step", t=t, steps=c):
+            state, ahist, lhist, rhist = run_steps(
+                ops, comm, state, [rho1_eff] * c, rho2s, project,
+                link_mask=lm_chunk)
         t += c
         chunk_idx += 1
-        stopped = tol > 0.0 and float(rhist[-1]) < tol
+        comm_bytes = comm_msgs = 0
+        if ledger is not None:
+            ledger.add_iterations(c)
+            per = ledger.per_iter
+            comm_bytes, comm_msgs = per.bytes * c, per.messages * c
+            m_bytes.inc(comm_bytes)
+        m_iters.inc(c)
+        m_chunks.inc()
+        stopped = False
+        if tol > 0.0:
+            with trace.span("solver.residual", t=t):
+                res_last = float(rhist[-1])
+            m_res.set(res_last)
+            stopped = res_last < tol
         ckpt_path = None
         if ckpt_dir and (chunk_idx % ckpt_every == 0 or t >= n_iters
                          or stopped):
-            ckpt_path = save_state(ckpt_dir, state)
+            with trace.span("solver.checkpoint", t=t):
+                ckpt_path = save_state(ckpt_dir, state)
         yield ChunkResult(
             state=state, alpha_hist=ahist, lagrangian=lhist,
             primal_residual=rhist,
             rho_hist=torch.tensor(rho2s, dtype=torch.float32),
-            ckpt_path=ckpt_path, stopped=stopped)
+            ckpt_path=ckpt_path, stopped=stopped, comm_bytes=comm_bytes,
+            comm_messages=comm_msgs)
         if stopped:
             return
 
@@ -435,6 +541,6 @@ __all__ = [
     "AdmmState", "ChunkResult", "DenseComm", "EveryK", "ResidualImprovement",
     "SolverOps", "admm_step", "dense_parts", "init_state",
     "inverse_denominators", "lagrangian",
-    "load_state", "resolve_refresh_policy", "resolve_rho2", "run_chunked", "run_steps", "save_state",
-    "slot_rho",
+    "load_state", "resolve_refresh_policy", "resolve_rho2", "run_chunked",
+    "run_steps", "save_state", "slot_rho",
 ]

@@ -1,5 +1,5 @@
 """Network topologies for the decentralized consensus graph (pure numpy) —
-a copy of the parts of ``repro.core.topology`` the port runs.
+a copy of ``repro.core.topology``.
 
 The paper assumes a symmetric, undirected, connected graph G = (V, E)
 (Assumption 1); its experiments use a ring where each node talks to the k
@@ -34,6 +34,11 @@ class Graph:
     @property
     def max_degree(self) -> int:
         return int(self.degrees.max())
+
+    @property
+    def is_regular(self) -> bool:
+        d = self.degrees
+        return bool((d == d[0]).all())
 
     def validate(self):
         for j, om in enumerate(self.nbr):
@@ -93,6 +98,39 @@ def ring(n_nodes: int, hops: int = 1) -> Graph:
     return _build(n_nodes, nbr)
 
 
+def ring_shifts(hops: int) -> List[int]:
+    """Slot-ordered ring offsets matching ``ring`` neighbor order."""
+    return list(range(-hops, 0)) + list(range(1, hops + 1))
+
+
+def complete(n_nodes: int) -> Graph:
+    nbr = [[q for q in range(n_nodes) if q != j] for j in range(n_nodes)]
+    return _build(n_nodes, nbr)
+
+
+def random_connected(n_nodes: int, extra_edge_prob: float = 0.2,
+                     seed: int = 0) -> Graph:
+    """Random connected graph: a ring(J,1) backbone + random chords."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n_nodes, n_nodes), bool)
+    for j in range(n_nodes):
+        adj[j, (j + 1) % n_nodes] = adj[(j + 1) % n_nodes, j] = True
+    chords = rng.random((n_nodes, n_nodes)) < extra_edge_prob
+    chords = np.triu(chords, 2)
+    adj |= chords | chords.T
+    np.fill_diagonal(adj, False)
+    nbr = [sorted(np.nonzero(adj[j])[0].tolist()) for j in range(n_nodes)]
+    return _build(n_nodes, nbr)
+
+
+def from_adjacency(adj: np.ndarray) -> Graph:
+    adj = np.asarray(adj, bool)
+    if not (adj == adj.T).all():
+        raise ValueError("adjacency must be symmetric (undirected graph)")
+    nbr = [sorted(np.nonzero(adj[j])[0].tolist()) for j in range(adj.shape[0])]
+    return _build(adj.shape[0], nbr)
+
+
 def reknit(graph: Graph, dead: Sequence[int]) -> tuple:
     """Fault tolerance: remove dead nodes and re-knit the survivors.
 
@@ -139,4 +177,5 @@ def _try_build(n_nodes, nbr):
         return None
 
 
-__all__ = ["Graph", "reknit", "ring"]
+__all__ = ["Graph", "complete", "from_adjacency", "random_connected",
+           "reknit", "ring", "ring_shifts"]

@@ -221,15 +221,28 @@ int launch_mma(const Maps& maps, const float* sx, const float* sy,
   return (int)cudaGetLastError();
 }
 
+// One operand's split pass, by its element type.
+cudaError_t split_operand(const void* v, int bf16, float* hi, float* lo,
+                          float* norms, int rows, int m, int mp,
+                          const kpca::Epilogue& ep, cudaStream_t s) {
+  return bf16 ? tf32_split<32>(static_cast<const __nv_bfloat16*>(v), nullptr,
+                               hi, lo, norms, rows, m, mp, ep, s)
+              : tf32_split<32>(static_cast<const float*>(v), nullptr, hi, lo,
+                               norms, rows, m, mp, ep, s);
+}
+
 }  // namespace
 
-// x (batch, n, m) and y (batch, k, m) contiguous fp32; y == NULL means y
+// x (batch, n, m) and y (batch, k, m) contiguous, each fp32, or bf16 where
+// its flag is set (the split pass's bf16 instance widens it on load, so a
+// bf16 operand gives the bits of its widened fp32 copy); y == NULL means y
 // is x: split once, only tiles on or above the diagonal, mirrored (needs
 // bm == 128). scratch: xh, xl (batch, n, mp), then yh, yl (batch, k, mp)
 // unless y is x, then the norms sx (batch, n) and sy (batch, k) unless y is
 // x; mp = m rounded up to 32. out (batch, n, k). bm: 128 or 64 output rows
 // per block. Three launches (two when y is x), one C call.
-extern "C" int kpca_gram(const float* x, const float* y, float* scratch,
+extern "C" int kpca_gram(const void* x, int x_bf16, const void* y,
+                         int y_bf16, float* scratch,
                          const float* gamma, float* out, int batch, int n,
                          int k, int m, int mp, int bm, int kind, int degree,
                          float coef, float scale, int normalize,
@@ -249,9 +262,9 @@ extern "C" int kpca_gram(const float* x, const float* y, float* scratch,
   cudaStream_t s = (cudaStream_t)stream;
   kpca::Epilogue ep{kind, degree, coef, scale, normalize};
   cudaError_t e =
-      tf32_split<32>(x, nullptr, xh, xl, sx, batch * n, m, mp, ep, s);
+      split_operand(x, x_bf16, xh, xl, sx, batch * n, m, mp, ep, s);
   if (e == cudaSuccess && !symmetric)
-    e = tf32_split<32>(y, nullptr, yh, yl, sy, batch * k, m, mp, ep, s);
+    e = split_operand(y, y_bf16, yh, yl, sy, batch * k, m, mp, ep, s);
   if (e != cudaSuccess) return (int)e;
   Maps maps;
   if (!encode(&maps.xh, xh, batch, n, mp, bm) ||

@@ -38,7 +38,8 @@ __device__ __forceinline__ float tf32_rna(float v) {
 // block per row; project's short query batches and its support set). A
 // row's norm is summed thread-strided, then by a shuffle tree per warp,
 // then the warps in order: an order fixed by mp and TPR alone. The input
-// element T is float, or __nv_bfloat16 for project's bf16 query slabs: a
+// element T is float, or __nv_bfloat16 for gram's bf16 operands and
+// project's bf16 query slabs: a
 // bf16 value widens to fp32 exactly on load, and everything after the load
 // is the fp32 path's, so a bf16 row gives the same bits as its widened fp32
 // copy, from half the bytes.

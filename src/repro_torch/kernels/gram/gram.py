@@ -20,6 +20,7 @@ from .._util import (SMS, cdiv, check_kernel_operand, check_launch,
                      launch_guard, stream_of)
 
 KINDS = {"rbf": 0, "linear": 1, "poly": 2}
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 ROW_PAD = 32            # floats: one 128-byte TMA row, one K-tile
 TILE_COLS = 128         # output columns per block
 
@@ -44,26 +45,30 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
                gamma: torch.Tensor) -> torch.Tensor:
     """K[z, i, j] = kfun(x[z, i], y[z, j]) on the card's tensor cores.
 
-    x (Z, n, m) and y (Z, k, m) fp32 contiguous; ``y=None`` means y = x:
-    the operand is split once and only tiles on or above the diagonal run,
-    each mirrored, so K equals K^T exactly. gamma a 0-d fp32 tensor (read on
-    the device, so no host sync). Returns (Z, n, k) fp32. Counts one launch
-    per Gram (split passes included).
+    x (Z, n, m) and y (Z, k, m) contiguous, each fp32 or bf16 (a bf16
+    operand is widened on load by the split pass's bf16 instance, and gives
+    the bits of its widened fp32 copy); ``y=None`` means y = x: the operand
+    is split once and only tiles on or above the diagonal run, each
+    mirrored, so K equals K^T exactly. gamma a 0-d fp32 tensor (read on the
+    device, so no host sync). Returns (Z, n, k) fp32. Counts one launch per
+    Gram (split passes included), and its bf16 launches apart.
     """
     dev = x.device
-    check_kernel_operand("x", x, 3, dev)
+    check_kernel_operand("x", x, 3, dev, OPERAND_DTYPES)
     check_kernel_operand("gamma", gamma, 0, dev)
     symmetric = y is None
     z, n, m = x.shape
     k = n
     if not symmetric:
-        check_kernel_operand("y", y, 3, dev)
+        check_kernel_operand("y", y, 3, dev, OPERAND_DTYPES)
         k = y.shape[1]
         if y.shape != (z, k, m):
             raise ValueError(f"gram operands disagree: x {tuple(x.shape)}, "
                              f"y {tuple(y.shape)}")
     if min(z, n, k, m) < 1:
         raise ValueError(f"empty gram operands: x {tuple(x.shape)}")
+    x_bf16 = x.dtype == torch.bfloat16
+    y_bf16 = not symmetric and y.dtype == torch.bfloat16
     mp = padded_stride(m)
     rows = n if symmetric else n + k          # rows split: hi, lo, norm
     scratch = torch.empty((z * rows * (2 * mp + 1),), dtype=torch.float32,
@@ -72,16 +77,19 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
     lib = load_library()
     with launch_guard(dev):
         rc = lib.kpca_gram(
-            x.data_ptr(), None if symmetric else y.data_ptr(),
-            scratch.data_ptr(), gamma.data_ptr(), out.data_ptr(), z, n, k, m,
+            x.data_ptr(), int(x_bf16), None if symmetric else y.data_ptr(),
+            int(y_bf16), scratch.data_ptr(), gamma.data_ptr(),
+            out.data_ptr(), z, n, k, m,
             mp, tile_rows(z, n, k, symmetric), KINDS[spec.kind],
             int(spec.degree), float(spec.coef), float(spec.scale),
             int(bool(spec.normalize)), stream_of(dev))
     check_launch("gram", rc)
     gram_tiles.launches += 1
+    gram_tiles.bf16_launches += x_bf16 or y_bf16
     return out
 
 
 gram_tiles.launches = 0
+gram_tiles.bf16_launches = 0       # of launches: a bf16 operand
 
 __all__ = ["KINDS", "gram_tiles", "padded_stride", "tile_rows"]

@@ -3,7 +3,8 @@ version.
 
 On a CUDA tensor: gamma resolution, then the gram kernels for the whole
 batch (the split pass forms the row norms; ``y=None`` takes the symmetric
-path). On a CPU tensor: ``gram_reference``. Matches
+path). On a CPU tensor: ``gram_reference``. Operands may be fp32 or bf16
+(widened on load); the result is fp32 on both devices. Matches
 ``repro.kernels.gram.ops.gram_op`` (tests/test_torch_kernels.py).
 """
 
@@ -16,7 +17,7 @@ import torch
 from ...core.kernels_math import KernelSpec, _self_k, resolve_gamma
 from .._util import on_card
 from .gram import gram_tiles
-from .ref import gram_reference
+from .ref import gram_reference, widen
 
 
 def gram_op(spec: KernelSpec, x: torch.Tensor,
@@ -41,7 +42,7 @@ def gamma_operand(spec: KernelSpec, x: torch.Tensor,
     the median heuristic on x (rbf); 0 for linear/poly, which ignore it."""
     if spec.kind != "rbf":
         return torch.zeros((), dtype=torch.float32, device=x.device)
-    g = resolve_gamma(spec, x) if gamma is None else gamma
+    g = resolve_gamma(spec, widen(x)) if gamma is None else gamma
     return torch.as_tensor(g, dtype=torch.float32,
                            device=x.device).reshape(()).contiguous()
 

@@ -16,9 +16,10 @@ def gram_reference(spec: KernelSpec, x: torch.Tensor,
                    y: Optional[torch.Tensor] = None,
                    gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense Gram matrix K[..., i, j] = K(x_i, y_j), batched over any
-    leading dims of x and y."""
-    if y is None:
-        y = x
+    leading dims of x and y. bf16 operands are widened to fp32 first, as
+    the kernel widens them on load; the result is fp32."""
+    x = widen(x)
+    y = x if y is None else widen(y)
     if spec.kind == "rbf":
         g = resolve_gamma(spec, x) if gamma is None else gamma
         return torch.exp(-g * pairwise_sqdist(x, y))
@@ -33,4 +34,9 @@ def gram_reference(spec: KernelSpec, x: torch.Tensor,
     return k
 
 
-__all__ = ["gram_reference"]
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """An operand as the kernels read it: bf16 widened (exactly) to fp32."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+__all__ = ["gram_reference", "widen"]

@@ -19,8 +19,9 @@ def project_reference(spec: KernelSpec, x_query: torch.Tensor,
                       gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, M) x (L, M) x (L, C) -> (B, C):
     scores = K @ coefs + rowmean(K) * row_mean_coef + bias. bf16 queries
-    are widened to fp32 first, as the kernel widens them on load."""
-    k = gram_reference(spec, _widen(x_query), x_support, gamma=gamma)
+    are widened to fp32 first (by ``gram_reference``), as the kernel widens
+    them on load."""
+    k = gram_reference(spec, x_query, x_support, gamma=gamma)
     out = k @ coefs
     if row_mean_coef is not None:
         out = out + torch.mean(k, dim=1, keepdim=True) * row_mean_coef[None]
@@ -37,13 +38,8 @@ def project_partial_reference(spec: KernelSpec, x_query: torch.Tensor,
     """Raw (B, C+1) partials K(x_query, x_support) @ coefs_ext; the last
     column of ``coefs_ext`` is the valid-row indicator. bf16 queries are
     widened first."""
-    return gram_reference(spec, _widen(x_query), x_support,
+    return gram_reference(spec, x_query, x_support,
                           gamma=gamma) @ coefs_ext
-
-
-def _widen(x_query: torch.Tensor) -> torch.Tensor:
-    """Queries as the kernel reads them: bf16 widened (exactly) to fp32."""
-    return x_query.float() if x_query.dtype == torch.bfloat16 else x_query
 
 
 __all__ = ["project_partial_reference", "project_reference"]

@@ -516,6 +516,178 @@ def test_run_admm_topk_matches_jax():
     assert float((num / torch.sqrt(d1 * d2 + 1e-12)).abs().max()) < 0.25
 
 
+# ---- topology (tests/test_topology.py) -------------------------------------
+
+
+def test_graph_builders_are_the_jax_packages():
+    from repro_torch.core.topology import (complete, from_adjacency,
+                                           random_connected, ring_shifts)
+    pairs = [(complete(5), j_topology.complete(5)),
+             (ring(10, 3), j_topology.ring(10, 3))]
+    pairs += [(random_connected(12, 0.3, seed), j_topology.random_connected(
+        12, 0.3, seed)) for seed in range(5)]
+    adj = np.zeros((5, 5), bool)
+    for i in range(4):
+        adj[i, i + 1] = adj[i + 1, i] = True
+    pairs.append((from_adjacency(adj), j_topology.from_adjacency(adj)))
+    for got, want in pairs:
+        assert got.nbr == want.nbr and got.rev == want.rev
+        assert got.is_regular == want.is_regular
+        assert got.connected()
+        for a, b in zip(got.neighbor_array(), want.neighbor_array()):
+            np.testing.assert_array_equal(a, b)
+    assert complete(5).is_regular and not from_adjacency(adj).is_regular
+    for hops in (1, 2, 3):
+        assert ring_shifts(hops) == j_topology.ring_shifts(hops)
+    g = ring(10, 3)
+    for j in range(10):
+        assert list(g.nbr[j]) == [(j + s) % 10 for s in ring_shifts(3)]
+    asym = adj.copy()
+    asym[0, 2] = True
+    with pytest.raises(ValueError):
+        from_adjacency(asym)
+
+
+@pytest.mark.parametrize("dead", [[5], [3, 4, 5, 6], [0, 13]])
+def test_reknit_of_random_graphs_is_the_jax_packages(dead):
+    from repro_torch.core.topology import random_connected
+    for seed in range(3):
+        g_t, s_t = reknit(random_connected(14, 0.2, seed), dead)
+        g_j, s_j = j_topology.reknit(
+            j_topology.random_connected(14, 0.2, seed), dead)
+        assert g_t.nbr == g_j.nbr and list(s_t) == list(s_j)
+        assert g_t.connected()
+
+
+# ---- communication accounting (tests/test_obs.py) -------------------------
+
+
+def _ledger_calls(led):
+    led.record_exchange(100, 2)              # before any iteration: setup
+    led.begin_iteration()
+    led.record_exchange(10, 3)
+    led.record_collective(4)
+    led.end_iteration()
+    led.add_iterations(7)
+    return led
+
+
+def test_comm_ledger_is_the_jax_packages():
+    import json
+    from repro.obs.comm import CommLedger as JCommLedger
+    from repro.obs.comm import CommProfile as JCommProfile
+    from repro_torch.obs import CommLedger, CommProfile
+    got, want = _ledger_calls(CommLedger()), _ledger_calls(JCommLedger())
+    assert got.snapshot() == want.snapshot()
+    json.dumps(got.snapshot())
+    assert (got.setup.bytes, got.setup.messages) == (100, 2)
+    assert (got.per_iter.bytes, got.per_iter.collectives,
+            got.per_iter.collective_bytes) == (10, 1, 4)
+    tot = got.totals()
+    assert (tot.bytes, tot.messages) == (100 + 70, 2 + 21)
+    p, q = CommProfile(3, 2, 1, 4), JCommProfile(3, 2, 1, 4)
+    assert p.scaled(5).as_dict() == q.scaled(5).as_dict() == dict(
+        bytes=15, messages=10, collectives=5, collective_bytes=20)
+
+
+@pytest.fixture(scope="module")
+def driver_setups():
+    """tests/test_obs.py's and tests/test_solver_driver.py's setup (8 nodes
+    x 16 samples x 12 features, ring(8, hops=2)) in both packages."""
+    nodes, _ = node_dataset(n_nodes=8, n_per_node=16, m=12, seed=0)
+    return (build_setup(nodes, ring(8, 2), KernelSpec(), device=CPU),
+            j_admm.build_setup(jnp.asarray(nodes), j_topology.ring(8, 2),
+                               JKernelSpec()))
+
+
+def test_dense_comm_measured_bytes_match_analytic_count_and_jax(
+        driver_setups):
+    """3 exchanges per iteration (alpha, K^-1 B columns, z-projections),
+    each one fp32 N-vector over every directed off-node edge."""
+    from repro.obs.comm import CommLedger as JCommLedger
+    from repro_torch.obs import CommLedger
+    s_t, s_j = driver_setups
+    led, j_led = CommLedger(), JCommLedger()
+    chunks = list(run_chunked(s_t, n_iters=6, chunk=3, ledger=led))
+    j_chunks = list(j_solver.run_chunked(s_j, n_iters=6, chunk=3,
+                                         ledger=j_led))
+    src, mask = _np(s_t.src), _np(s_t.mask)
+    edges = int(np.sum((src != np.arange(8)[:, None]) & mask))
+    assert edges == 8 * 2 * 2
+    per_iter = 3 * edges * 16 * 4
+    assert (led.per_iter.bytes, led.per_iter.messages) == (per_iter,
+                                                           3 * edges)
+    assert led.iterations == 6 and led.totals().bytes == 6 * per_iter
+    assert [(c.comm_bytes, c.comm_messages) for c in chunks] == \
+        [(3 * per_iter, 9 * edges)] * 2 == \
+        [(c.comm_bytes, c.comm_messages) for c in j_chunks]
+    assert led.snapshot() == j_led.snapshot()
+
+
+def test_ledger_leaves_the_trajectory_unchanged(driver_setups):
+    from repro_torch.obs import CommLedger
+    s_t, _ = driver_setups
+    plain = list(run_chunked(s_t, n_iters=4, chunk=2))
+    led = list(run_chunked(s_t, n_iters=4, chunk=2, ledger=CommLedger()))
+    assert plain[0].comm_bytes == plain[0].comm_messages == 0
+    for a, b in zip(plain, led):
+        assert torch.equal(a.alpha_hist, b.alpha_hist)
+
+
+def test_solver_spans_and_metrics_recorded(driver_setups, tmp_path):
+    from repro_torch.obs import CommLedger, metrics, trace
+    s_t, _ = driver_setups
+    handles = {name: metrics.counter(name, transport="dense") for name in (
+        "solver_iterations_total", "solver_chunks_total",
+        "comm_bytes_total")}
+    before = {k: m.value for k, m in handles.items()}
+    tracer = trace.enable()
+    try:
+        chunks = list(run_chunked(s_t, n_iters=4, chunk=2, tol=1e-9,
+                                  ckpt_dir=str(tmp_path),
+                                  ledger=CommLedger()))
+    finally:
+        trace.disable()
+    names = {e[1] for e in tracer.events()}
+    assert {"solver.rho2", "solver.step", "solver.residual",
+            "solver.checkpoint"} <= names
+    grew = {k: m.value - before[k] for k, m in handles.items()}
+    assert grew == {"solver_iterations_total": 4, "solver_chunks_total": 2,
+                    "comm_bytes_total": sum(c.comm_bytes for c in chunks)}
+    assert metrics.gauge("solver_primal_residual").value == \
+        pytest.approx(float(chunks[-1].primal_residual[-1]))
+
+
+def test_run_chunked_with_ledger_matches_jax_history(driver_setups):
+    """tests/test_solver_driver.py's chunked-vs-whole case with a ledger:
+    chunk 7 over 30 iterations from one alpha0 (JAX package's init="local"
+    on the shared setup), per iteration against the JAX package's driver."""
+    from repro.obs.comm import CommLedger as JCommLedger
+    from repro_torch.obs import CommLedger
+    _, s_j = driver_setups
+    arrays = {f.name: np.asarray(getattr(s_j, f.name))
+              for f in dataclasses.fields(s_j) if f.name != "include_self"}
+    s_t = setup_from_numpy(arrays, device=CPU)
+    alpha0 = np.asarray(j_admm.initial_alpha(s_j, "local"))
+    led, j_led = CommLedger(), JCommLedger()
+    chunks = list(run_chunked(s_t, n_iters=30, chunk=7, ledger=led,
+                              alpha0=torch.as_tensor(alpha0)))
+    j_chunks = list(j_solver.run_chunked(s_j, n_iters=30, chunk=7,
+                                         ledger=j_led,
+                                         alpha0=jnp.asarray(alpha0)))
+    assert [c.state.t for c in chunks] == [int(c.state.t) for c in j_chunks]
+    np.testing.assert_allclose(
+        _np(torch.cat([c.alpha_hist for c in chunks])),
+        np.concatenate([np.asarray(c.alpha_hist) for c in j_chunks]),
+        rtol=2e-4, atol=2e-4)
+    assert [c.comm_bytes for c in chunks] == \
+        [c.comm_bytes for c in j_chunks]
+    assert led.snapshot() == j_led.snapshot()
+    whole = run_admm(s_t, n_iters=30, alpha0=torch.as_tensor(alpha0))
+    torch.testing.assert_close(torch.cat([c.alpha_hist for c in chunks]),
+                               whole.alpha_hist, rtol=0, atol=0)
+
+
 def _paper_report() -> dict:
     """The paper's experiment path at its size, in both packages on the
     CPU, each from its own setup (median bandwidth, global centering,

@@ -821,3 +821,162 @@ def test_kernels_launch_on_every_card(cuda):
         torch.testing.assert_close(project_op(spec, xq, xs, co),
                                    project_reference(spec, xq, xs, co),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("which", ["x", "y", "both", "self"])
+@pytest.mark.parametrize("shape", [(1, 17, 9, 5), (20, 100, 100, 784),
+                                   (1, 130, 257, 784)])
+def test_gram_kernel_bf16_bits_of_widened(cuda, which, shape):
+    """A bf16 operand through the split pass's bf16 instance gives the bits
+    of its widened fp32 copy, fp32 out, within the plain version's
+    tolerance, and counts as a bf16 launch."""
+    z, n, k, m = shape
+    spec = SPECS["rbf"]
+    x = _rand((z, n, m), n + m, cuda, 1.0 / np.sqrt(m))
+    y = _rand((z, k, m), k + m, cuda, 1.0 / np.sqrt(m))
+    rx, ry = x.bfloat16(), y.bfloat16()
+    args = {"x": (rx, y), "y": (x, ry), "both": (rx, ry),
+            "self": (rx, None)}[which]
+    widened = tuple(None if a is None else a.float() for a in args)
+    n0 = gram_tiles.bf16_launches
+    got = gram_op(spec, *args)
+    assert gram_tiles.bf16_launches == n0 + 1
+    assert got.dtype == torch.float32
+    want = gram_op(spec, *widened)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, gram_reference(spec, *args),
+                               rtol=_tol(m), atol=_tol(m))
+
+
+def test_center_op_bf16_on_card(cuda):
+    k = _rand((3, 48, 40), 1, cuda)
+    got = center_op(k.bfloat16())
+    assert got.dtype == torch.float32
+    want = center_op(k.bfloat16().float())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, center_reference(k.bfloat16()),
+                               rtol=2e-4, atol=2e-4)
+
+
+def _fault_plan():
+    from repro_torch.faults import (FaultPlan, LinkFault, NodeDropout,
+                                    StragglerStall, link_delay)
+    return FaultPlan(seed=3, dropouts=(NodeDropout(t=6, node=2),),
+                     links=(LinkFault(t0=1, t1=5, u=0, v=1),
+                            link_delay(3, 2, u=4, v=5)),
+                     stragglers=(StragglerStall(t0=2, t1=4, node=6),))
+
+
+def test_masked_run_chunked_on_card_matches_cpu(cuda):
+    """A run under a link mask (link loss, a delay, a straggler) through
+    the fused kernel against the port's CPU run from the same constants
+    and alpha0; the ledgers agree."""
+    from repro_torch.core import initial_alpha, run_chunked
+    from repro_torch.obs import CommLedger
+    s_cpu, s_gpu = _shared_setups(cuda)
+    lm = _fault_plan().link_mask(s_cpu.src.numpy(), s_cpu.mask.numpy(), 0,
+                                 12)
+    alpha0 = initial_alpha(s_cpu)
+    out = {}
+    for name, s in (("cpu", s_cpu), ("gpu", s_gpu)):
+        led = CommLedger()
+        a0 = admm_local_update.launches
+        chunks = list(run_chunked(s, n_iters=12, chunk=5, ledger=led,
+                                  alpha0=alpha0.to(s.device), link_mask=lm))
+        out[name] = (torch.cat([c.alpha_hist for c in chunks]).cpu(), led,
+                     admm_local_update.launches - a0)
+    (h_c, led_c, _), (h_g, led_g, launches) = out["cpu"], out["gpu"]
+    assert launches == 12
+    torch.testing.assert_close(h_g, h_c, rtol=1e-3, atol=1e-4)
+    assert led_g.snapshot() == led_c.snapshot()
+
+
+def test_fault_tolerant_run_on_card_matches_cpu(cuda, monkeypatch):
+    """FaultTolerantRun (link loss, a delay, a straggler, a dropout at t=6)
+    on the card against the CPU from one shared state: the card builds each
+    setup (before and after the re-knit, through gram on the card) and the
+    CPU run steps from the same constants."""
+    import dataclasses
+    from repro_torch.core import init_state, initial_alpha, ring
+    from repro_torch.core.admm import build_setup
+    from repro_torch.data import node_dataset
+    from repro_torch.faults import FaultTolerantRun
+    from repro_torch.faults import driver
+    built = []
+
+    def card_setup(x_nodes, graph, spec, device="cuda", **kw):
+        if torch.device(device).type == "cuda":
+            built.append(build_setup(x_nodes, graph, spec, device=cuda, **kw))
+            return built[-1]
+        s = built.pop(0)
+        return dataclasses.replace(s, **{
+            f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)
+            if isinstance(getattr(s, f.name), torch.Tensor)})
+
+    monkeypatch.setattr(driver, "build_setup", card_setup)
+    nodes, _ = node_dataset(8, 50, m=784, seed=5)
+    runs, hist = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        g0 = gram_tiles.launches
+        run = FaultTolerantRun(nodes, ring(8, 2), KernelSpec(), _fault_plan(),
+                               n_iters=12, chunk=5, device=dev)
+        if dev.type == "cuda":
+            alpha0 = initial_alpha(run.setup).cpu()
+            assert gram_tiles.launches > g0
+        run.state = init_state(alpha0.to(dev), run.setup.n_slots)
+        hist[dev.type] = [c.alpha_hist.cpu() for c in run.chunks()]
+        runs[dev.type] = run
+    assert [h.shape for h in hist["cuda"]] == [h.shape for h in hist["cpu"]]
+    for g, c in zip(hist["cuda"], hist["cpu"]):
+        torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4)
+    assert list(runs["cuda"].node_ids) == list(runs["cpu"].node_ids) == \
+        [0, 1, 3, 4, 5, 6, 7]
+    assert runs["cuda"].state.alpha.device.type == "cuda"
+    assert [e.kind for e in runs["cuda"].events] == \
+        ["link", "link", "straggler", "dropout"]
+
+
+def test_shard_loss_on_card(cuda):
+    """A 4-shard model served on the card under a shard loss at the first
+    dispatch: every future resolves (success, or a typed FaultError),
+    exactly one re-balance publish, and the survivors' scores match the
+    plain projection of the gathered survivor model."""
+    from repro_torch.core import oos
+    from repro_torch.faults import (FaultError, FaultPlan, ShardLoss,
+                                    ShardLossInjector, ShardRebalancer)
+    from repro_torch.serve import KpcaEngine, KpcaServeConfig, ModelHandle
+    sh, _ = oos.shard_fitted(_served_model(cuda, 2000), 4)
+    handle = ModelHandle(sh)
+    injector = ShardLossInjector(FaultPlan(
+        shard_losses=(ShardLoss(at_dispatch=0, shard=1),)))
+    rebalancer = ShardRebalancer()
+    eng = KpcaEngine(handle, KpcaServeConfig(max_batch=64, min_bucket=8,
+                                             max_retries=4,
+                                             retry_backoff_s=0.005),
+                     device=cuda, inject_fault=injector, on_fault=rebalancer)
+    reqs = _stream(40, seed=7)
+    p0 = project_tiles.partial_launches
+    with eng:
+        futs = [eng.submit(r) for r in reqs]
+        outs = []
+        for f in futs:
+            try:
+                outs.append(f.result(timeout=30))
+            except FaultError as e:
+                outs.append(e)
+    assert rebalancer.n_rebalances == 1 and injector.n_raised >= 1
+    assert handle.version == 1 and handle.current().shard_sizes[1] == 0
+    assert project_tiles.partial_launches > p0
+    survivor = oos.gather_fitted(handle.current())
+    served = [(r, o) for r, o in zip(reqs, outs)
+              if not isinstance(o, Exception)]
+    assert served
+    for req, got in served:
+        plain = project_reference(
+            survivor.spec, torch.as_tensor(req, device=cuda),
+            survivor.x_support, survivor.coefs, survivor.row_mean_coef,
+            survivor.bias, survivor.gamma)
+        np.testing.assert_allclose(got, plain.cpu().numpy(), rtol=3e-4,
+                                   atol=3e-4)

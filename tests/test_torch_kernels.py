@@ -332,6 +332,53 @@ def test_project_3xtf32_emulation_matches_jax(kind, b, l, m, c):
     np.testing.assert_allclose(got, want, rtol=_tol(m), atol=_tol(m))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_op_dtypes_like_jax(dtype):
+    """``TestGramKernel.test_dtypes``: the op on fp32 or bf16 input against
+    the fp32 Gram of the widened input, at its 2e-5 / 5e-2; and against the
+    JAX package's op on the same rounded input."""
+    spec = dict(kind="rbf", gamma=0.5)
+    x = _rand((40, 16), 3)
+    xt = torch.as_tensor(x).to(getattr(torch, dtype))
+    got = gram_op(KernelSpec(**spec), xt)
+    assert got.dtype == torch.float32
+    want = np.asarray(j_gram_op(JKernelSpec(**spec), jnp.asarray(x)))
+    tol = 5e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    j_got = np.asarray(j_gram_op(JKernelSpec(**spec), jnp.asarray(x).astype(
+        getattr(jnp, dtype)), interpret=True))
+    np.testing.assert_allclose(got.numpy(), j_got, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", sorted(SPEC_KW))
+@pytest.mark.parametrize("which", ["x", "y", "both", "self"])
+def test_gram_op_bf16_is_fp32_of_the_rounded_input(kind, which):
+    """A bf16 operand is widened: fp32 out, within 2e-5 of the fp32 op on
+    the rounded input (the median bandwidth included)."""
+    x = torch.as_tensor(_rand((24, 20), 5, 1 / np.sqrt(20)))
+    y = torch.as_tensor(_rand((9, 20), 6, 1 / np.sqrt(20)))
+    rx, ry = x.bfloat16(), y.bfloat16()
+    args = {"x": (rx, y), "y": (x, ry), "both": (rx, ry),
+            "self": (rx, None)}[which]
+    spec = KernelSpec(**dict(SPEC_KW[kind], gamma=None))
+    got = gram_op(spec, *args)
+    assert got.dtype == torch.float32
+    want = gram_op(spec, *(None if a is None else a.float() for a in args))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_center_op_bf16_is_fp32_of_the_rounded_input():
+    k = torch.as_tensor(_rand((3, 48, 40), 1))
+    kb = k.bfloat16()
+    got = center_op(kb)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, center_op(kb.float()), rtol=2e-4,
+                               atol=2e-4)
+    want = np.asarray(j_center_op(jnp.asarray(k[0].numpy()).astype(
+        jnp.bfloat16), interpret=True))
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("m,want", [(1, 32), (5, 32), (31, 32), (32, 32),
                                     (33, 64), (784, 800)])
 def test_gram_padded_row_stride(m, want):
