@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase dkpca    # build, fit and ring fit alone
 
 Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
 
@@ -73,13 +74,32 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            FaultError, one re-balance publish, the survivors' scores within
            3e-4 of the plain projection of the gathered survivor model),
            two transient faults healed by retries, and a publisher whose
-           first job crashes while the engine serves the stale version.
+           first job crashes while the engine serves the stale version;
+  dkpca    the ring fit (``dkpca_distributed`` over ``RingComm``) at the
+           fit's configuration on a NCCL group of world 1 in this process:
+           from the dense fit's alpha0, alpha@30 within the reference's SPMD
+           gate (5e-3 max|alpha| + 1e-4) of the dense fit, similarity@30 >=
+           0.99 (also from init="local"), the ledger equal to the JAX
+           package's per-node profile (4,800 B / 12 messages / 1 collective
+           an iteration, 7,528,000 B / 28 / 1 in setup), at least 21 gram
+           launches (20 sweep cross-Grams and the slot Grams) and exactly 30
+           admm_step launches; a bf16-message run recorded (finite, 2,400 B
+           an iteration); first-run and warm times, device time and idle
+           share; then, on a host with 2 or more cards, the same fit over
+           min(4, cards) spawned NCCL ranks held to the one-card ring;
+  serve_kpca  ``python -m repro_torch.launch.serve_kpca`` at the serving
+           width (2000 x 784 model, 4 submitters x 256 requests of 1-256
+           rows, 2 injected faults) in a subprocess: rc 0, the served line,
+           no faulted future, retries >= 2, its trace (with the engine's
+           spans) and metrics files; its q/s, latencies and launches.
 
 Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
-faults) is driven with every kernel's launch count zeroed just before it
-and read just after; a kernel the path must run and never launched fails
-the run (the kernels, breakdown and serve_stream phases count nowhere,
-nor do the references a path's checks compute after its count is read).
+faults; dkpca; serve_kpca, counted in the launcher's own process, which
+starts at zero) is driven with every kernel's launch count zeroed just
+before it and read just after; a kernel the path must run and never
+launched fails the run (the kernels, breakdown and serve_stream phases
+count nowhere, nor do the references a path's checks compute after its
+count is read).
 Gram's launches with a bf16 operand are also counted, and project's by
 kind: bf16 slabs, raw partials, support splits. The summary's
 ``launches`` is the fit and serve path's. Device times per call come from
@@ -125,6 +145,17 @@ FAULT_WAIT_S = 30.0            # faults: every future resolved within this
 # per iteration after the re-knit, and totals over the 40 iterations
 FAULT_LEDGER = dict(per_iter=(76800, 192), setup=(0, 0),
                     totals=(3072000, 7680), iterations=40)
+# the JAX package's per-node ledger for the ring fit (J=20, N=100, M=784,
+# hops=2, global centring): (bytes, messages, collectives) an iteration and
+# in setup, 4*100*784*4 + 20*100*784*4 + 4*100*4 bytes
+DKPCA_LEDGER = dict(per_iter=(4800, 12, 1), setup=(7528000, 28, 1))
+DKPCA_BF16_BYTES = 2400        # bf16 messages: half the fp32 iteration
+DKPCA_MAX_RANKS = 4            # the multi-card ring: at most 4 cards
+DKPCA_RANK_TIMEOUT_S = 300
+SERVE_KPCA_ARGS = ("--n-train", "2000", "--m", "784", "--max-batch", "128",
+                   "--submitters", "4", "--requests", "256", "--max-q",
+                   "256", "--inject-faults", "2")
+SERVE_KPCA_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -474,13 +505,18 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     # and 500 landmarks against it (compress)
     marks = pooled_t[torch.as_tensor(oos.landmark_schedule(2000)[:500],
                                      device=dev)]
+    x_t = torch.as_tensor(nodes, device=dev)
     records = {"gram": [
         gram_record(spec, slots.contiguous(), g, "20x500x500x784"),
         gram_record(spec, pooled_t[None].contiguous(), g, "2000x2000x784"),
         gram_record(spec, pooled_t[None, :100].contiguous(), g,
                     "100x2000x784", y=pooled_t[None].contiguous()),
         gram_record(spec, marks[None].contiguous(), g, "500x2000x784",
-                    y=pooled_t[None].contiguous())]}
+                    y=pooled_t[None].contiguous()),
+        # the ring fit's centring sweep: every node's block against its
+        # neighbour's, one cross-Gram launch for the 20 nodes
+        gram_record(spec, x_t, g, "20x100x100x784 sweep",
+                    y=torch.roll(x_t, -1, dims=0).contiguous())]}
     # bf16 input: the split pass's bf16 instance, on the setup's batch
     records["gram_bf16"] = [gram_record(spec, slots.bfloat16().contiguous(),
                                         g, "20x500x500x784xbf16")]
@@ -1418,6 +1454,248 @@ def phase_faults(dev, spec, nodes, full) -> dict:
     return launches
 
 
+def ring_gate(got, want) -> tuple:
+    """The reference's SPMD gate (tests/helpers/check_dkpca_distributed.py):
+    (max |got - want|, 5e-3 * max |want| + 1e-4)."""
+    err = float((got - want).abs().max())
+    return err, 5e-3 * float(want.abs().max()) + 1e-4
+
+
+def ring_rank(rank: int, world: int, store: str, alpha0, out: str) -> None:
+    """One rank of the multi-card ring fit (a spawned process on card
+    ``rank``): the fit's configuration, 20 / world nodes a rank; writes
+    its gathered alpha (rank 0), its kernel launches and its times."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import KernelSpec, dkpca_distributed
+    from repro_torch.data import node_dataset
+    from repro_torch.kernels import admm_local_update, gram_tiles
+    from repro_torch.launch import make_process_group
+    group, dev = make_process_group("cuda", rank=rank, world_size=world,
+                                    local_rank=rank,
+                                    init_method=f"file://{store}")
+    try:
+        nodes, _ = node_dataset(20, 100, m=784, seed=0)
+        times = []
+        for _ in range(2):                      # first run, then warm
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = dkpca_distributed(nodes, group=group, hops=2,
+                                    spec=KernelSpec(kind="rbf"),
+                                    n_iters=30, alpha0=alpha0, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if rank == 0:
+            torch.save(res.alpha.cpu(), f"{out}/alpha.pt")
+        Path(f"{out}/rank{rank}.json").write_text(json.dumps(dict(
+            card=str(dev), first_s=times[0], warm_s=times[1],
+            gram=gram_tiles.launches, admm_step=admm_local_update.launches)))
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_on_cards(alpha0, want) -> dict:
+    """The ring fit spread over min(4, cards) NCCL ranks, one card and
+    20 / world nodes each (the largest such world that splits the ring
+    evenly), in spawned processes with a timeout; the gathered alpha held
+    to the one-card ring's at the reference's gate. On one card it does
+    not run, and says why."""
+    import multiprocessing
+    import torch
+    count = torch.cuda.device_count()
+    world = max(w for w in range(1, min(DKPCA_MAX_RANKS, count) + 1)
+                if 20 % w == 0)
+    if world < 2:
+        reason = (f"{count} card(s) on this host: the multi-card ring needs "
+                  f"2 or more (run it on a four-card host)")
+        print(f"chip_smoke: dkpca: the multi-card ring did not run: "
+              f"{reason}", file=sys.stderr, flush=True)
+        return dict(ran=False, reason=reason)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs = [ctx.Process(target=ring_rank,
+                             args=(r, world, f"{tmp}/store", alpha0, tmp))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DKPCA_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        check(not hung and codes == [0] * world,
+              f"dkpca cards: ranks {hung} hung, exit codes {codes}")
+        if hung or codes != [0] * world:
+            return dict(ran=True, world=world, exit_codes=codes, hung=hung)
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(world)]
+        got = torch.load(f"{tmp}/alpha.pt")
+    err, gate = ring_gate(got, want.cpu())
+    check(err <= gate, f"dkpca cards: alpha {err:.3g} from the one-card "
+                       f"ring > {gate:.3g}")
+    for r in ranks:
+        check(r["gram"] > 0 and r["admm_step"] == 60,
+              f"dkpca cards: launches {r}")
+    return dict(ran=True, world=world, nodes_per_rank=20 // world,
+                max_abs_err_vs_one_card=err, gate=gate, spawn_wall_s=wall,
+                ranks=ranks)
+
+
+def phase_dkpca(dev, spec, nodes, setup, dense_alpha, alpha_gt) -> dict:
+    """The ring fit (``dkpca_distributed`` over ``RingComm``) at the fit's
+    configuration, in this process on a NCCL group of world 1 (all 20
+    nodes on the card; a FileStore under build/), then over several cards
+    when the host has them:
+
+      * counted: one run from the dense fit's alpha0 (init="local" of the
+        dense setup) with a ledger: its launches (gram: the J sweep
+        cross-Grams and one batched slot-Gram launch, at least; admm_step:
+        exactly one an iteration), its alpha at iteration 30 against the
+        dense run_admm on the card at the reference's SPMD gate, its
+        similarity@30, and its ledger against the JAX package's per-node
+        profile;
+      * after the count: a default init="local" run (similarity@30), a
+        bf16-message run (similarity and per-iteration bytes, recorded),
+        the warm time and a traced run (device time, calls, idle share),
+        and the multi-card ring (``ring_on_cards``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dkpca_distributed, initial_alpha
+    from repro_torch.launch import make_process_group
+    from repro_torch.obs import CommLedger
+    t_phase = time.perf_counter()
+    x_nodes = setup.x
+    pooled = x_nodes.reshape(-1, x_nodes.shape[-1])
+    alpha0 = initial_alpha(setup, "local")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        group, _ = make_process_group(dev, rank=0, world_size=1,
+                                      local_rank=0,
+                                      init_method=f"file://{tmp}/store")
+        try:
+            def fit(**kw):
+                return dkpca_distributed(nodes, group=group, hops=2,
+                                         spec=spec, center="global",
+                                         n_iters=30, device=dev, **kw)
+
+            ledger = CommLedger()
+            zero_launches()
+            t0 = time.perf_counter()
+            res = fit(alpha0=alpha0, ledger=ledger)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = read_launches("dkpca", ("gram", "admm_step"))
+            local = fit()
+            bf16_ledger = CommLedger()
+            bf16 = fit(alpha0=alpha0, message_dtype=torch.bfloat16,
+                       ledger=bf16_ledger)
+            _, warm_s, trace = timed_and_traced(
+                torch, lambda: fit(alpha0=alpha0))
+        finally:
+            dist.destroy_process_group()
+    err, gate = ring_gate(res.alpha, dense_alpha)
+    sims = {name: mean_similarity(r.alpha_hist[29], x_nodes, pooled,
+                                  alpha_gt, spec, setup.gamma)
+            for name, r in (("alpha0_of_dense", res), ("init_local", local),
+                            ("bf16_messages", bf16))}
+    got_ledger = dict(
+        per_iter=(ledger.per_iter.bytes, ledger.per_iter.messages,
+                  ledger.per_iter.collectives),
+        setup=(ledger.setup.bytes, ledger.setup.messages,
+               ledger.setup.collectives))
+    predicted_gram = 20 + 1
+    check(err <= gate, f"dkpca: alpha@30 {err:.3g} from the dense fit > "
+                       f"{gate:.3g}")
+    for name in ("alpha0_of_dense", "init_local"):
+        check(sims[name][0] >= SIM30_MIN, f"dkpca ({name}): similarity@30 "
+                                          f"{sims[name][0]:.4f} < "
+                                          f"{SIM30_MIN}")
+    check(got_ledger == DKPCA_LEDGER, f"dkpca: ledger {got_ledger}, the JAX "
+                                      f"package's {DKPCA_LEDGER}")
+    check(launches["gram"] >= predicted_gram and launches["admm_step"] == 30,
+          f"dkpca: launches {launches}, predicted gram >= "
+          f"{predicted_gram} and admm_step 30")
+    check(bool(torch.isfinite(bf16.alpha_hist).all())
+          and bf16_ledger.per_iter.bytes == DKPCA_BF16_BYTES,
+          f"dkpca bf16: finite {bool(torch.isfinite(bf16.alpha_hist).all())}"
+          f", {bf16_ledger.per_iter.bytes} B an iteration")
+    cards = ring_on_cards(alpha0.cpu().numpy(), res.alpha)
+    emit("dkpca", nodes=20, per_node=100, features=784, hops=2, world=1,
+         iterations=30, max_abs_err_vs_dense=err, gate=gate,
+         similarity_mean={k: v[0] for k, v in sims.items()},
+         similarity_min={k: v[1] for k, v in sims.items()},
+         ledger=ledger.snapshot(), bf16_ledger=bf16_ledger.snapshot(),
+         predicted_gram_launches=predicted_gram, launches=launches,
+         first_s=first_s, warm_s=warm_s, **trace, cards=cards,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_serve_kpca() -> dict:
+    """``python -m repro_torch.launch.serve_kpca`` at the smoke's serving
+    width in a subprocess with a timeout, with its trace and metrics files
+    under build/: rc 0, the served line, no faulted future, at least the
+    two injected faults retried, both files written with the engine's
+    spans in the trace; its q/s and latencies, and the launches it
+    reports."""
+    import os
+    import re
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_PLATFORM"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trace_p, metrics_p = Path(tmp) / "trace.json", Path(tmp) / "m.json"
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_kpca",
+             *SERVE_KPCA_ARGS, "--trace-out", str(trace_p), "--metrics-out",
+             str(metrics_p)], env=env, cwd=ROOT, capture_output=True,
+            text=True, timeout=SERVE_KPCA_TIMEOUT_S)
+        wall = time.perf_counter() - t_phase
+        spans = sorted({e["name"] for e in json.loads(trace_p.read_text())[
+            "traceEvents"]}) if trace_p.exists() else []
+        metrics_written = metrics_p.exists() and bool(
+            json.loads(metrics_p.read_text()))
+    text = out.stdout
+    served = re.search(r"served (\d+) queries / (\d+) requests \((\d+) "
+                       r"futures\) in ([\d.]+)s -> (\d+) q/s wall", text)
+    lat = re.search(r"compute p50=(\S+) p99=(\S+)  queue-wait p50=(\S+) "
+                    r"p99=(\S+)", text)
+    nums = {k: int(v) for k, v in re.findall(
+        r"\b(retries|faulted_futures|gram|project|center|admm_step)=(\d+)",
+        text)}
+    check(out.returncode == 0 and served is not None,
+          f"serve_kpca: rc {out.returncode}, served line "
+          f"{served is not None}: {out.stderr[-2000:]}")
+    check(nums.get("faulted_futures") == 0 and nums.get("retries", 0) >= 2,
+          f"serve_kpca: {nums}")
+    check(metrics_written and "serve.dispatch" in spans,
+          f"serve_kpca: metrics file {metrics_written}, spans {spans}")
+    launches = {k: nums.get(k) for k in ("gram", "project", "center",
+                                         "admm_step")}
+    check(bool(launches["gram"]) and bool(launches["project"]),
+          f"serve_kpca: kernel launches {launches}")
+    emit("serve_kpca", args=" ".join(SERVE_KPCA_ARGS), rc=out.returncode,
+         queries=served and int(served.group(1)),
+         requests=served and int(served.group(2)),
+         launcher_wall_s=served and float(served.group(4)),
+         queries_per_s_wall=served and int(served.group(5)),
+         latency=lat and dict(compute_p50=lat.group(1),
+                              compute_p99=lat.group(2),
+                              queue_wait_p50=lat.group(3),
+                              queue_wait_p99=lat.group(4)),
+         retries=nums.get("retries"),
+         faulted_futures=nums.get("faulted_futures"),
+         spans=spans, launches=launches, stdout=text.splitlines(),
+         phase_s=wall)
+    return launches
+
+
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     """Nodes whose init="local" warm start v1/sqrt(lam1) points against the
     central component, counted on the smaller side (the global sign is
@@ -1435,7 +1713,14 @@ def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     return min(neg, x_nodes.shape[0] - neg)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--phase", choices=("all", "dkpca"), default="all",
+                    help="dkpca: the build, the fit it is held to and the "
+                         "ring fit alone (its multi-card part on a "
+                         "four-card host)")
+    only_dkpca = ap.parse_args(argv).phase == "dkpca"
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch sees no CUDA device")
@@ -1481,7 +1766,8 @@ def main() -> int:
 
     # -- kernels -------------------------------------------------------------
     gamma = resolve_gamma(spec, torch.as_tensor(pooled, device=dev))
-    records = phase_kernels(dev, spec, nodes, pooled, gamma)
+    records = None if only_dkpca else phase_kernels(dev, spec, nodes,
+                                                    pooled, gamma)
 
     # -- main path: fit, then serve (launch counts zeroed just before) -------
     zero_launches()
@@ -1529,6 +1815,15 @@ def main() -> int:
          setup_s=t1 - t0, admm_s=t2 - t1, central_s=t3 - t2)
     check(sims[30][0] >= SIM30_MIN,
           f"similarity@30 {sims[30][0]:.4f} < {SIM30_MIN}")
+    if only_dkpca:
+        phase_dkpca(dev, spec, nodes, setup, res.alpha, alpha_gt[:, 0])
+        if FAILURES:
+            raise SmokeFailure(f"{len(FAILURES)} check(s) failed: "
+                               f"{FAILURES}")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
 
     model = oos.from_decentralized(nodes, res.alpha, spec,
                                    gamma=setup.gamma, device=dev)
@@ -1577,6 +1872,9 @@ def main() -> int:
     path_launches["serve_async"] = phase_serve_async(dev, served, sync)
     path_launches["serve_sharded"] = phase_serve_sharded(dev, loaded)
     path_launches["faults"] = phase_faults(dev, spec, nodes, loaded)
+    path_launches["dkpca"] = phase_dkpca(dev, spec, nodes, setup, res.alpha,
+                                         alpha_gt[:, 0])
+    path_launches["serve_kpca"] = phase_serve_kpca()
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")
@@ -1617,7 +1915,8 @@ def main() -> int:
     bf16 = records["project_bf16"][1]
     summary[1]["bf16"] = {k: bf16[k] for k in keys}
     summary[1]["launches_by_kind"] = {
-        p: {k: c[f"project_{k}"] for k in ("bf16", "partial", "support")}
+        p: {k: c.get(f"project_{k}") for k in ("bf16", "partial",
+                                                "support")}
         for p, c in path_launches.items()}
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

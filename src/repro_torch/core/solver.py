@@ -1,15 +1,19 @@
-"""Shared ADMM solver layer (port of ``repro.core.solver``, dense transport).
+"""Shared ADMM solver layer (port of ``repro.core.solver``): one step body,
+two transports.
 
   * ``AdmmState`` — the full iterate (alpha, dual B, last z projections G,
     per-node ||z_hat||^2, iteration counter, per-slot rho), checkpointable
     via ``save_state``/``load_state`` in the JAX package's layout;
   * ``admm_step`` — ONE iteration (paper eq. 10-13 in the per-slot-rho
     generalization, with ``slot_mask`` censoring and hold-when-isolated),
-    written against a communicator (``DenseComm``: all J nodes on one
-    device, exchange by (src, rsl) indexing). The node axis J is a written-
-    out batch dimension where the JAX package ``vmap``s. Its eq. 12-13
-    block is the fused local update (``repro_torch.kernels.admm_step``):
-    one kernel launch for all J nodes on the card;
+    written against a communicator: ``DenseComm`` (all J nodes on one
+    device, exchange by (src, rsl) indexing) or ``RingComm`` (the ring's
+    nodes split in blocks over the ranks of a ``torch.distributed`` group,
+    exchange by neighbour shifts; ``repro_torch.core.dkpca``). The node
+    axis is a written-out batch dimension where the JAX package ``vmap``s.
+    Its eq. 12-13 block is the fused local update
+    (``repro_torch.kernels.admm_step``): one kernel launch for all of a
+    device's nodes on the card;
   * ``run_chunked`` — the resumable driver: a Python loop over iterations
     (the JAX package's jitted ``scan``) that yields the live state every
     ``chunk`` iterations, with residual-based early stopping,
@@ -24,10 +28,11 @@ early-stop test.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, List, Optional, Union
+from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..obs import metrics, trace
@@ -121,6 +126,166 @@ class DenseComm:
 
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         return torch.max(x)
+
+
+def check_backend(backend: str, device: torch.device) -> None:
+    """A ring's process group must suit its tensors: NCCL for CUDA
+    tensors, gloo for CPU ones. Anything else raises."""
+    want = "nccl" if device.type == "cuda" else "gloo"
+    if str(backend).lower() != want:
+        raise ValueError(f"a {backend!r} process group cannot carry "
+                         f"{device.type} tensors: the ring needs {want!r}")
+
+
+class RingComm:
+    """The ring transport over ``torch.distributed``: the J nodes of a ring
+    split into contiguous blocks, rank r holding nodes r*L .. r*L+L-1 (the
+    leading axis of every per-node tensor), and exchange == one shift per
+    neighbour offset. On one rank (L == J) the whole ring is indexing; with
+    one node a rank it is the JAX package's one node per device.
+
+    Each exchange moves everything that crosses ranks in ONE
+    ``batch_isend_irecv`` (all offsets together, one contiguous buffer per
+    peer and direction); every rank posts its sends and receives in that
+    batch, so NCCL's first batched call has the whole group. The columns
+    that stay on the rank are indexed.
+
+    message_dtype (e.g. torch.bfloat16) casts neighbour payloads before the
+    wire and widens them to fp32 after; columns that stay on the rank take
+    the same round trip, so a result does not depend on the layout. The
+    self slot and all accumulation stay fp32.
+
+    Communication accounting (``repro_torch.obs.comm``): the ledger
+    records ONE node's logical egress, as the JAX package's ``RingComm``
+    does inside ``shard_map``: each neighbour shift N * itemsize(wire) bytes
+    and one message, each ``all_sum``/``all_max`` one collective of a
+    scalar; whatever the layout (8 x 1 and 4 x 2 give the same ledger).
+    Multiply by J for network totals.
+    """
+
+    def __init__(self, n_nodes: int, offsets: Sequence[int],
+                 rev_slots: Sequence[int], group=None,
+                 device: DeviceLike = "cuda", message_dtype=None,
+                 ledger: Optional[CommLedger] = None):
+        self.device = resolve_device(device)
+        check_backend(dist.get_backend(group), self.device)
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        if n_nodes % self.world:
+            raise ValueError(f"{n_nodes} nodes do not split evenly over "
+                             f"{self.world} ranks")
+        self.n_nodes = n_nodes
+        self.n_local = n_nodes // self.world
+        self.offsets = tuple(offsets)
+        self.rev_slots = tuple(rev_slots)
+        self.message_dtype = message_dtype
+        self.ledger = ledger
+        self._routes = {}
+
+    @property
+    def first_node(self) -> int:
+        """Global index of this rank's first node."""
+        return self.rank * self.n_local
+
+    def local(self, fn: Callable) -> Callable:
+        """Per-node math is written batched over the rank's L nodes."""
+        return fn
+
+    def _route(self, offsets: tuple):
+        """Index tensors for shifting values by ``offsets``: (offset, node)
+        pairs that stay on the rank (receiver and sender), and per peer
+        rank the pairs sent to it and received from it, in one order both
+        ends agree on (offset, then the receiver's local index)."""
+        if offsets in self._routes:
+            return self._routes[offsets]
+        j, ln, r0 = self.n_nodes, self.n_local, self.first_node
+        stay_to, stay_from = [], []
+        sends, recvs = {}, {}
+        for d, o in enumerate(offsets):
+            for l in range(ln):
+                src = (r0 + l + o) % j              # receiver l hears src
+                if src // ln == self.rank:
+                    stay_to.append((d, l))
+                    stay_from.append((d, src % ln))
+                else:
+                    recvs.setdefault(src // ln, []).append((d, l))
+                dst = (r0 + l - o) % j              # l is heard by dst
+                if dst // ln != self.rank:
+                    sends.setdefault(dst // ln, []).append(
+                        ((d, dst % ln), (d, l)))
+
+        def idx(pairs):
+            t = torch.as_tensor(pairs, dtype=torch.long,
+                                device=self.device).reshape(-1, 2)
+            return t[:, 0], t[:, 1]
+
+        peers = [(p, idx([s for _, s in sorted(sends.get(p, []))]),
+                  idx(recvs.get(p, []))) for p in sorted({*sends, *recvs})]
+        route = (idx(stay_to), idx(stay_from), peers)
+        self._routes[offsets] = route
+        return route
+
+    def shift(self, v: torch.Tensor, offsets: Sequence[int],
+              wire_dtype=None) -> torch.Tensor:
+        """v: (D, L, ...) — row d the value each of this rank's nodes sends
+        at offset d — -> (D, L, ...) with out[d, l] = v[d] of global node
+        (first_node + l + offsets[d]) % J, in fp32 (cast to ``wire_dtype``
+        for the trip when one is given). Records one message of one node's
+        row per offset."""
+        offsets = tuple(offsets)
+        if self.ledger is not None:
+            per_node = v[0, 0].numel() * (
+                v.element_size() if wire_dtype is None
+                else torch.empty((), dtype=wire_dtype).element_size())
+            for _ in offsets:
+                self.ledger.record_exchange(per_node)
+        wire = v if wire_dtype is None else v.to(wire_dtype)
+        (to_d, to_l), (from_d, from_l), peers = self._route(offsets)
+        out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+        out[to_d, to_l] = wire[from_d, from_l].float()
+        if not peers:
+            return out
+        ops, landing = [], []
+        for peer, (sd, sl), (rd, rl) in peers:
+            to = peer if self.group is None else \
+                dist.get_global_rank(self.group, peer)
+            if sd.numel():
+                ops.append(dist.P2POp(dist.isend, wire[sd, sl].contiguous(),
+                                      to, self.group))
+            if rd.numel():
+                buf = torch.empty((rd.numel(),) + tuple(v.shape[2:]),
+                                  dtype=wire.dtype, device=v.device)
+                ops.append(dist.P2POp(dist.irecv, buf, to, self.group))
+                landing.append((rd, rl, buf))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        for rd, rl, buf in landing:
+            out[rd, rl] = buf.float()
+        return out
+
+    def exchange(self, cols: torch.Tensor) -> torch.Tensor:
+        """cols: (L, S, N) per-out-slot columns -> (L, S, N): in-slot 0 is
+        self; in-slot d+1 (offset o) of global node m receives column
+        rev_slots[d] of node (m + o) % J (its out-slot pointing back)."""
+        sent = cols[:, list(self.rev_slots)].transpose(0, 1)    # (D, L, N)
+        recv = self.shift(sent, self.offsets, self.message_dtype)
+        return torch.cat([cols[:, :1], recv.transpose(0, 1)], dim=1)
+
+    def _reduce(self, x: torch.Tensor, local, op) -> torch.Tensor:
+        if self.ledger is not None:
+            self.ledger.record_collective(x.element_size())
+        out = local(x).reshape(1)
+        dist.all_reduce(out, op=op, group=self.group)
+        return out[0]
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of every node's value in x (L,) over the ring."""
+        return self._reduce(x, torch.sum, dist.ReduceOp.SUM)
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Max of every node's value in x (L,) over the ring."""
+        return self._reduce(x, torch.max, dist.ReduceOp.MAX)
 
 
 def dense_parts(setup) -> tuple:
@@ -539,7 +704,8 @@ def load_state(ckpt_dir: str, step: Optional[int] = None,
 
 __all__ = [
     "AdmmState", "ChunkResult", "DenseComm", "EveryK", "ResidualImprovement",
-    "SolverOps", "admm_step", "dense_parts", "init_state",
+    "RingComm", "SolverOps", "admm_step", "check_backend", "dense_parts",
+    "init_state",
     "inverse_denominators", "lagrangian",
     "load_state", "resolve_refresh_policy", "resolve_rho2", "run_chunked",
     "run_steps", "save_state", "slot_rho",

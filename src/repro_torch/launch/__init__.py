@@ -1,5 +1,8 @@
-"""Device layouts for the port's launchers (``mesh``)."""
+"""The port's launchers and what they share: device layouts (``mesh``: the
+serving mesh, the ring's process group), the process environment
+(``env``) and the serving launcher (``python -m
+repro_torch.launch.serve_kpca``)."""
 
-from .mesh import make_serving_mesh
+from .mesh import make_process_group, make_serving_mesh
 
-__all__ = ["make_serving_mesh"]
+__all__ = ["make_process_group", "make_serving_mesh"]

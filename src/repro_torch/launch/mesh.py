@@ -1,18 +1,26 @@
-"""The serving mesh: the devices a sharded model is served over (port of
-``repro.launch.mesh.make_serving_mesh``; the production and LM meshes are
-not ported yet).
+"""Device layouts for the port: the serving mesh and the ring's process
+group (port of ``repro.launch.mesh``'s ``make_serving_mesh`` and, for the
+decentralized fit, ``make_mesh``; the production and LM meshes are not
+ported yet).
 
-A mesh here is a plain list of ``torch.device``: the sharded router
+A serving mesh is a plain list of ``torch.device``: the sharded router
 (``repro_torch.serve.sharded``) places each device's shards and runs its
-work on that device's own CUDA stream. Nothing is read from the
-environment: a multi-process launcher passes its device list explicitly.
+work on that device's own CUDA stream. The ring fit
+(``repro_torch.core.dkpca``) runs one process per rank of a
+``torch.distributed`` group instead: ``make_process_group`` joins the
+calling process to it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import os
+from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..core.solver import check_backend
+from ..device import DeviceLike, resolve_device
 
 
 def make_serving_mesh(n_shards: int) -> Optional[List[torch.device]]:
@@ -29,4 +37,39 @@ def make_serving_mesh(n_shards: int) -> Optional[List[torch.device]]:
     return [torch.device("cuda", i) for i in range(n_shards)]
 
 
-__all__ = ["make_serving_mesh"]
+def make_process_group(device: DeviceLike = "cuda",
+                       rank: Optional[int] = None,
+                       world_size: Optional[int] = None,
+                       local_rank: Optional[int] = None,
+                       init_method: str = "env://"
+                       ) -> Tuple[object, torch.device]:
+    """Join the calling process to the default process group; returns
+    (group, device) for ``dkpca_distributed(group=..., device=...)``.
+
+    rank, world_size and local_rank default to ``RANK``, ``WORLD_SIZE``
+    and ``LOCAL_RANK`` as ``torchrun`` sets them (and 0, 1, 0 without
+    them); ``init_method`` is where the ranks meet (``env://`` reads
+    ``MASTER_ADDR``/``MASTER_PORT``; ``tcp://host:port`` or
+    ``file:///path`` name it). A CUDA device gives a NCCL group on
+    ``cuda:local_rank``, the CPU a gloo group; a CUDA request without a
+    card raises. A process already in a group keeps it, if its backend
+    suits the device."""
+    dev = resolve_device(device)
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None \
+        else world_size
+    local_rank = int(env.get("LOCAL_RANK", 0)) if local_rank is None \
+        else local_rank
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=init_method, rank=rank,
+                                world_size=world_size)
+    check_backend(dist.get_backend(), dev)
+    return dist.group.WORLD, dev
+
+
+__all__ = ["make_process_group", "make_serving_mesh"]

@@ -980,3 +980,77 @@ def test_shard_loss_on_card(cuda):
             survivor.bias, survivor.gamma)
         np.testing.assert_allclose(got, plain.cpu().numpy(), rtol=3e-4,
                                    atol=3e-4)
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """This process as a NCCL group of world 1 (a file store under the
+    test's temporary directory), destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch import make_process_group
+    group, dev = make_process_group(cuda, rank=0, world_size=1,
+                                    local_rank=0,
+                                    init_method=f"file://{tmp_path}/store")
+    yield group, dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("center,project", [("global", "ball"),
+                                            ("none", "rescale")])
+def test_ring_world1_on_card_matches_dense_fit(nccl_world1, center, project):
+    """The ring fit with every node on the card against the dense fit on
+    the card from the same alpha0, at the reference's SPMD gate; its
+    launches: one gram per centring-sweep step and one for the slot Grams,
+    one admm_step an iteration."""
+    from repro_torch.core import (build_setup, dkpca_distributed,
+                                  initial_alpha, ring, run_admm)
+    from repro_torch.data import node_dataset
+    from repro_torch.obs import CommLedger
+    group, dev = nccl_world1
+    spec = KernelSpec(kind="rbf")
+    nodes, _ = node_dataset(8, 32, 64, seed=0)
+    setup = build_setup(nodes, ring(8, hops=2), spec, center=center,
+                        device=dev)
+    alpha0 = initial_alpha(setup, "local")
+    dense = run_admm(setup, n_iters=20, alpha0=alpha0, project=project)
+    g0, a0 = gram_tiles.launches, admm_local_update.launches
+    led = CommLedger()
+    got = dkpca_distributed(nodes, group=group, hops=2, spec=spec,
+                            center=center, project=project, n_iters=20,
+                            alpha0=alpha0, ledger=led, device=dev)
+    torch.cuda.synchronize()
+    assert gram_tiles.launches - g0 == (8 if center == "global" else 0) + 1
+    assert admm_local_update.launches - a0 == 20
+    assert got.alpha.device.type == "cuda"
+    assert got.alpha_hist.shape == (20, 8, 32)
+    scale = float(dense.alpha.abs().max())
+    assert float((got.alpha - dense.alpha).abs().max()) \
+        < 5e-3 * scale + 1e-4
+    assert led.per_iter.bytes == 3 * 4 * 32 * 4
+
+
+def test_ring_bf16_messages_on_card(nccl_world1):
+    """bf16 messages on the card: the exchange carries each neighbour column
+    as its bf16 rounding and the self slot exactly (bitwise the fp32
+    exchange of the rounded columns); a bf16 fit is finite at half the
+    fp32 bytes."""
+    from repro_torch.core import RingComm, dkpca_distributed
+    from repro_torch.data import node_dataset
+    from repro_torch.obs import CommLedger
+    group, dev = nccl_world1
+    ring_args = (8, [-2, -1, 1, 2], [4, 3, 2, 1])
+    cols = _rand((8, 5, 32), 3, dev)
+    got = RingComm(*ring_args, group=group, device=dev,
+                   message_dtype=torch.bfloat16).exchange(cols)
+    want = RingComm(*ring_args, group=group, device=dev).exchange(
+        cols.bfloat16().float())
+    want[:, 0] = cols[:, 0]
+    assert torch.equal(got, want)
+    nodes, _ = node_dataset(8, 32, 64, seed=0)
+    led = CommLedger()
+    bf16 = dkpca_distributed(nodes, group=group, hops=2,
+                             spec=KernelSpec(kind="rbf"), n_iters=20,
+                             message_dtype=torch.bfloat16, ledger=led,
+                             device=dev)
+    assert torch.isfinite(bf16.alpha_hist).all()
+    assert led.per_iter.bytes == 3 * 4 * 32 * 2
