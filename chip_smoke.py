@@ -91,11 +91,30 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            width (2000 x 784 model, 4 submitters x 256 requests of 1-256
            rows, 2 injected faults) in a subprocess: rc 0, the served line,
            no faulted future, retries >= 2, its trace (with the engine's
-           spans) and metrics files; its q/s, latencies and launches.
+           spans) and metrics files; its q/s, latencies and launches;
+  autotune the tile autotuner (``repro_torch.kernels.autotune``): with no
+           table the dispatch is the derived one; the CLI's search at the
+           paper's shapes into build/autotune/tile_table.json (each
+           candidate held to the default's output, then timed on the card:
+           device time of one call, best of 5); under the table each op
+           against its plain version at 2e-4, a query alone bitwise its
+           row of a B128 slab, and a second search with --assert-cached
+           runs no trial; each op's default and chosen knob with both
+           device times;
+  lm_serve the LM serving half: llama3.2-3b at full width and depth,
+           mixtral-8x22b and deepseek-v2-236b at full width cut to 2
+           layers, bf16 weights drawn on the card from a seeded generator:
+           decode against prefill logits at 2e-2 (tests/test_arch_smoke.py's
+           gate), DecodeEngine (4 slots, 8 prompts, 16 greedy new tokens)
+           tokens/s and peak memory, one decode step traced (wall, device
+           time, idle share, beside the time to read every weight once),
+           the MoE capacity dispatch against the dense expert loop; the smoke-size llama and mixtral on the card
+           against the CPU: the same greedy tokens, logits within 2e-2.
 
 Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
 faults; dkpca; serve_kpca, counted in the launcher's own process, which
-starts at zero) is driven with every kernel's launch count zeroed just
+starts at zero; autotune; lm_serve, which must launch none of the four
+kernels) is driven with every kernel's launch count zeroed just
 before it and read just after; a kernel the path must run and never
 launched fails the run (the kernels, breakdown and serve_stream phases
 count nowhere, nor do the references a path's checks compute after its
@@ -156,6 +175,14 @@ SERVE_KPCA_ARGS = ("--n-train", "2000", "--m", "784", "--max-batch", "128",
                    "--submitters", "4", "--requests", "256", "--max-q",
                    "256", "--inject-faults", "2")
 SERVE_KPCA_TIMEOUT_S = 300
+AUTOTUNE_K = 5                 # autotune: timing repeats per candidate
+AUTOTUNE_OUT = "build/autotune/tile_table.json"
+LM_TOL = 2e-2                  # the reference's decode tolerance (bf16)
+# lm_serve: (config, layers kept: None for all), at full width
+LM_FULL = (("llama3.2-3b", None), ("mixtral-8x22b", 2),
+           ("deepseek-v2-236b", 2))
+LM_SMOKE = ("llama3.2-3b", "mixtral-8x22b")
+LM_PROMPTS, LM_SLOTS, LM_MAX_LEN, LM_NEW = 8, 4, 64, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -1696,6 +1723,300 @@ def phase_serve_kpca() -> dict:
     return launches
 
 
+def phase_autotune(dev, spec) -> dict:
+    """The tile autotuner on the card: with no table, the dispatch is the
+    derived one at the smoke's shapes; the CLI's search writes a table
+    under build/ (gram: the ring's sweep cross-Gram 20 x 100 x 100 x 784
+    and the 2000^2 x 784 self-Gram; project at L500 and L2000 over the
+    buckets 8..128; project_partial at the 4-shard slice, L500; centering
+    at 2000^2 and 20 x 100^2), each candidate held to the default's output
+    before it is timed; the table installed, each op runs once more against
+    its plain version at the kernel's gate, a query alone is bitwise its
+    row of a B128 slab, and a second CLI run with --assert-cached runs no
+    trial. Prints each op's default and chosen knob with both device
+    times. The launch counts cover the search and the runs under the
+    table."""
+    import torch
+    from repro_torch.data import kpca_dataset, node_dataset
+    from repro_torch.kernels import (autotune, center_op, center_reference,
+                                     gram_op, gram_reference,
+                                     project_partial_reference,
+                                     project_reference)
+    from repro_torch.kernels.centering.centering import (center_plan,
+                                                         dispatch_plan)
+    from repro_torch.kernels.gram.gram import dispatch_rows, tile_rows
+    from repro_torch.kernels.project.ops import partial_projector, projector
+    from repro_torch.kernels.project.project import (dispatch_slices,
+                                                     support_chunking)
+    t_phase = time.perf_counter()
+    autotune.set_default_table(autotune.TileTable())
+    grams = ((20, 100, 100, 784, False), (1, 2000, 2000, 784, True),
+             (20, 500, 500, 784, True))
+    supports = (("project", 500), ("project", 2000), ("project_partial", 500))
+    centers = ((1, 2000, 2000), (20, 100, 100))
+
+    def knobs_now():
+        return dict(
+            gram={f"{z}x{n}x{k}x{m}" + ("" if sym else " cross"):
+                  dispatch_rows(z, n, k, m, sym, torch.float32, dev)
+                  for z, n, k, m, sym in grams},
+            project={f"{op} L{l}": dispatch_slices(op, l, 784, dev)
+                     for op, l in supports},
+            centering={"x".join(map(str, c)): str(dispatch_plan(*c, dev))
+                       for c in centers})
+
+    default_knobs = knobs_now()
+    derived = dict(
+        gram={k: tile_rows(z, n, kk, sym) for k, (z, n, kk, m, sym) in zip(
+            default_knobs["gram"], grams)},
+        project={k: support_chunking(l)[1] for k, (_, l) in zip(
+            default_knobs["project"], supports)},
+        centering={k: str(center_plan(*c)) for k, c in zip(
+            default_knobs["centering"], centers)})
+    check(default_knobs == derived, f"autotune: with no table the dispatch "
+                                    f"is not the derived one: "
+                                    f"{default_knobs} vs {derived}")
+    out = ROOT / AUTOTUNE_OUT
+    out.unlink(missing_ok=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    records = autotune.main(["--out", str(out), "--k", str(AUTOTUNE_K)])
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    table = autotune.TileTable.load(str(out))
+    autotune.set_default_table(table)
+    tuned_knobs = knobs_now()
+    # each op under the table against its plain version
+    nodes, pooled = node_dataset(20, 100, m=784, seed=0)
+    x_nodes = torch.as_tensor(nodes, device=dev)
+    xs = torch.as_tensor(pooled, device=dev)
+    xq = torch.as_tensor(kpca_dataset(128, m=784, seed=3), device=dev)
+    g = torch.as_tensor(0.01, device=dev)
+    errs = {}
+    neigh = torch.roll(x_nodes, 1, dims=0).contiguous()
+    errs["gram 20x100x100x784 cross"] = errors(
+        gram_op(spec, x_nodes, neigh, gamma=g),
+        gram_reference(spec, x_nodes, neigh, gamma=g))
+    errs["gram 2000x784"] = errors(gram_op(spec, xs, gamma=g),
+                                   gram_reference(spec, xs, gamma=g))
+    rng = torch.Generator(device=dev).manual_seed(0)
+    slabs = {}
+    for op, l in supports:
+        coefs = torch.randn((l, 2), generator=rng, device=dev)
+        sup = xs[:l].contiguous()
+        if op == "project":
+            fn = projector(spec, sup, coefs, gamma=g)
+            want = project_reference(spec, xq, sup, coefs, gamma=g)
+        else:
+            ext = torch.cat([coefs, torch.ones((l, 1), device=dev)], 1)
+            fn = partial_projector(spec, sup, ext, gamma=g)
+            want = project_partial_reference(spec, xq, sup, ext, gamma=g)
+        slabs[(op, l)] = (fn, fn(xq))
+        errs[f"{op} B128xL{l}"] = errors(slabs[(op, l)][1], want)
+    k_big = gram_op(spec, xs, gamma=g)
+    k_nodes = gram_op(spec, x_nodes, gamma=g)
+    for label, km in (("centering 2000x2000", k_big),
+                      ("centering 20x100x100", k_nodes)):
+        errs[label] = errors(center_op(km), center_reference(km))
+    torch.cuda.synchronize()
+    for label, e in errs.items():
+        check(e["max_scaled_err"] <= TOL,
+              f"autotune: {label} under the tuned table: {e}")
+    # batch invariance under the table: each query alone is its slab row
+    invariant = {}
+    for (op, l), (fn, slab) in slabs.items():
+        invariant[f"{op} L{l}"] = all(
+            torch.equal(fn(xq[i:i + 1]), slab[i:i + 1]) for i in (0, 63, 127))
+    check(all(invariant.values()), f"autotune: a query alone is not its "
+                                   f"slab row under the table: {invariant}")
+    launches = read_launches("autotune", ("gram", "project", "center"))
+    # the second search answers from the table
+    try:
+        again = autotune.main(["--out", str(out), "--assert-cached"])
+        cached_trials = sum(r["trials"] for r in again)
+    except SystemExit as e:
+        cached_trials, again = str(e), []
+    check(cached_trials == 0, f"autotune: --assert-cached ran trials: "
+                              f"{cached_trials}")
+    autotune.set_default_table(None)
+    emit("autotune", table=AUTOTUNE_OUT, entries=len(table),
+         backend=autotune.device_backend(dev.index),
+         default_knobs=default_knobs, tuned_knobs=tuned_knobs,
+         ops=[{k: r[k] for k in ("op", "shape", "default", "default_ms",
+                                 "chosen", "chosen_ms", "trials",
+                                 "trial_ms")} for r in records],
+         rejected=int(autotune._m_rejected.value),
+         errors_under_table=errs, batch_invariant=invariant,
+         assert_cached_trials=cached_trials, search_s=search_s,
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def lm_gate(model, params, vocab, dev) -> dict:
+    """tests/test_arch_smoke.py's cache check: the logits of 8 tokens fed
+    one by one against one prefill of the same 8, at 2e-2 (rtol and atol);
+    finite."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, vocab, size=(2, 8),
+                                        dtype=np.int32), device=dev)
+    cache = model.init_cache(2, 16)
+    for t in range(8):
+        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+    lg_all, _ = model.decode_step(params, model.init_cache(2, 16), toks, 0)
+    a, b = lg_all.float(), lg.float()
+    diff = (a - b).abs()
+    ok = bool(torch.isfinite(a).all() and torch.isfinite(b).all()
+              and (diff <= LM_TOL + LM_TOL * b.abs()).all())
+    return dict(ok=ok, max_abs_err=float(diff.max()),
+                max_abs_logit=float(b.abs().max()),
+                worst_ratio=float((diff / (LM_TOL + LM_TOL * b.abs())).max()))
+
+
+def lm_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=rng.integers(4, 12)).tolist()
+            for _ in range(LM_PROMPTS)]
+
+
+def record_logits(engine, seen: list) -> None:
+    """Keep each sampled step's logits (fp32, on the host)."""
+    inner = engine._sample
+
+    def sample(logits):
+        seen.append(logits.float().cpu())
+        return inner(logits)
+
+    engine._sample = sample
+
+
+def phase_lm_serve(dev) -> dict:
+    """The LM serving half on the card: llama3.2-3b at full width and depth,
+    mixtral-8x22b and deepseek-v2-236b at full width cut to 2 layers
+    (deepseek's dense first layer and one MoE/MLA layer), bf16 weights
+    drawn on the card from a seeded generator: the decode-vs-forward gate
+    at 2e-2, DecodeEngine (4 slots, 8 prompts of 4-11 tokens, max_len 64,
+    16 greedy new tokens) with tokens/s and the peak memory the model
+    allocated, tokens in range; one decode step of the 4 slots traced; the
+    MoE models' capacity dispatch against the dense expert loop on the same
+    hidden states; then the smoke-size
+    llama and mixtral drawn on the CPU, copied to the card, and decoded on
+    both: the greedy tokens and the logits (2e-2) compared. None of the
+    four kernels runs on this path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import slice_layer
+    from repro_torch.models.moe import moe_forward, moe_forward_ref
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    t_phase = time.perf_counter()
+    zero_launches()
+    serve_cfg = ServeConfig(max_len=LM_MAX_LEN, max_new_tokens=LM_NEW)
+    full = {}
+    for name, layers in LM_FULL:
+        cfg = get_config(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model = build_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params, _ = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.values())
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.values())
+        with torch.inference_mode():
+            gate = lm_gate(model, params, cfg.vocab, dev)
+        check(gate["ok"], f"lm_serve {name}: decode vs forward {gate}")
+        engine = DecodeEngine(model, params, LM_SLOTS, serve_cfg)
+        prompts = lm_prompts(cfg.vocab)
+        engine.generate(prompts[:LM_SLOTS])           # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        n_tok = sum(len(o) for o in outs)
+        check(n_tok == LM_PROMPTS * LM_NEW and all(
+            0 <= t < cfg.vocab for o in outs for t in o),
+            f"lm_serve {name}: {n_tok} tokens, or a token out of range")
+        # one decode step of the 4 slots at cache length 16, traced; the
+        # bound reads every weight once
+        cache = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+        tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            step = phase_breakdown(torch, lambda: model.decode_step(
+                params, cache, tok, 16))
+        step["bound_ms"] = weight_bytes / PEAK_BYTES * 1e3
+        del cache
+        moe = None
+        if cfg.is_moe:
+            mp = slice_layer(params, "layers")
+            mp = {k[len("moe/"):]: v[0] for k, v in mp.items()
+                  if k.startswith("moe/")}
+            hx = torch.randn((2, 8, cfg.d_model), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1)).to(torch.bfloat16)
+            with torch.inference_mode():
+                y, _ = moe_forward(mp, cfg, hx)
+                y_ref, _ = moe_forward_ref(mp, cfg, hx)
+            d = (y.float() - y_ref.float()).abs()
+            moe = dict(max_abs_err=float(d.max()),
+                       max_abs=float(y_ref.float().abs().max()))
+            check(bool((d <= LM_TOL + LM_TOL * y_ref.float().abs()).all()),
+                  f"lm_serve {name}: MoE dispatch vs dense loop {moe}")
+        full[name] = dict(
+            layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+            params=n_params, weight_gb=weight_bytes / 1e9, init_s=init_s,
+            decode_vs_forward=gate, tokens=n_tok, generate_s=gen_s,
+            tokens_per_s=n_tok / gen_s, decode_step=step,
+            peak_alloc_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+            moe_dispatch_vs_ref=moe, first_tokens=outs[0][:8])
+        del engine, params, model
+    torch.cuda.empty_cache()
+    # smoke size: the same weights on the CPU and on the card
+    smoke = {}
+    for name in LM_SMOKE:
+        cfg = get_config(name, smoke=True)
+        cpu_model = build_model(cfg, device="cpu")
+        params, _ = cpu_model.init(0)
+        card_model = build_model(cfg, device=dev)
+        card_params = {k: v.to(dev) for k, v in params.items()}
+        seen, outs = {}, {}
+        for side, model, p in (("cpu", cpu_model, params),
+                               ("card", card_model, card_params)):
+            eng = DecodeEngine(model, p, LM_SLOTS, serve_cfg)
+            record_logits(eng, seen.setdefault(side, []))
+            outs[side] = eng.generate(lm_prompts(cfg.vocab))
+        max_err, first_diff = 0.0, None
+        for i, (a, b) in enumerate(zip(seen["cpu"], seen["card"])):
+            max_err = max(max_err, float((a - b).abs().max()))
+            if first_diff is None and not torch.equal(a.argmax(-1),
+                                                      b.argmax(-1)):
+                first_diff = i
+                break
+        same = outs["cpu"] == outs["card"]
+        smoke[name] = dict(tokens_equal=same, logits_max_abs_err=max_err,
+                           first_differing_step=first_diff,
+                           prompts_equal=sum(a == b for a, b in zip(
+                               outs["cpu"], outs["card"])))
+        check(same and max_err <= LM_TOL,
+              f"lm_serve {name} smoke: card against CPU {smoke[name]}")
+    launches = read_launches("lm_serve", ())
+    check(not any(launches.values()),
+          f"lm_serve: the LM path launched a kPCA kernel: {launches}")
+    emit("lm_serve", full=full, smoke_card_vs_cpu=smoke, tolerance=LM_TOL,
+         launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     """Nodes whose init="local" warm start v1/sqrt(lam1) points against the
     central component, counted on the smaller side (the global sign is
@@ -1875,6 +2196,8 @@ def main(argv=None) -> int:
     path_launches["dkpca"] = phase_dkpca(dev, spec, nodes, setup, res.alpha,
                                          alpha_gt[:, 0])
     path_launches["serve_kpca"] = phase_serve_kpca()
+    path_launches["autotune"] = phase_autotune(dev, spec)
+    path_launches["lm_serve"] = phase_lm_serve(dev)
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")

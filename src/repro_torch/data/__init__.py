@@ -1,3 +1,4 @@
 from .synthetic import distribute, kpca_dataset, node_dataset
+from .tokens import TokenStream
 
-__all__ = ["distribute", "kpca_dataset", "node_dataset"]
+__all__ = ["TokenStream", "distribute", "kpca_dataset", "node_dataset"]

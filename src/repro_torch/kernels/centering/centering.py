@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import autotune
 from .._build import load_library
 from .._util import SMS, cdiv, check_launch, launch_guard, stream_of
 
@@ -50,6 +51,23 @@ class CenterPlan:
                     + self.slabs * self.col_tiles)
 
 
+def small_fits(n: int, m: int) -> bool:
+    """Whether an (n, m) block, its sums and means fit the one-launch
+    path's SMALL_BYTES of shared memory."""
+    return 4 * (n * m + SMALL_THREADS + 2 * n + m + 1) <= SMALL_BYTES
+
+
+def plan_of(z: int, n: int, m: int, knobs: dict) -> CenterPlan:
+    """The plan a tile-table entry names: ``{"small": 1}``, or ``{"small":
+    0, "rows": r}`` (slabs of r rows; the column tiles follow from m)."""
+    if knobs["small"]:
+        return CenterPlan(small=True)
+    rows = knobs["rows"]
+    return CenterPlan(small=False, rows=rows, slabs=cdiv(n, rows),
+                      col_tiles=cdiv(m, TILE_COLS))
+
+
+@autotune.register_dispatch_cache
 @functools.lru_cache(maxsize=1024)
 def center_plan(z: int, n: int, m: int) -> CenterPlan:
     """The path for Z blocks of (n, m): one launch through shared memory
@@ -59,8 +77,7 @@ def center_plan(z: int, n: int, m: int) -> CenterPlan:
     many); otherwise row slabs of 8 to 256 rows, as many as bring the grid
     to about two waves, but no more slabs than rows per slab (each apply
     block reduces one column partial per slab)."""
-    fits = 4 * (n * m + SMALL_THREADS + 2 * n + m + 1) <= SMALL_BYTES
-    if fits and (z >= SMS or 4 * n * m <= SMALL_BLOCK):
+    if small_fits(n, m) and (z >= SMS or 4 * n * m <= SMALL_BLOCK):
         return CenterPlan(small=True)
     col_tiles = cdiv(m, TILE_COLS)
     slabs = min(cdiv(TARGET_BLOCKS, z * col_tiles), cdiv(n, MIN_ROWS),
@@ -69,6 +86,19 @@ def center_plan(z: int, n: int, m: int) -> CenterPlan:
     rows = cdiv(n, slabs)
     return CenterPlan(small=False, rows=rows, slabs=cdiv(n, rows),
                       col_tiles=col_tiles)
+
+
+@autotune.register_dispatch_cache
+@functools.lru_cache(maxsize=1024)
+def dispatch_plan(z: int, n: int, m: int, device: torch.device
+                  ) -> CenterPlan:
+    """The plan of a centring on ``device``: the tile table's entry for
+    (Z, n, m)'s bucket on this card where it is legal at this exact shape,
+    else ``center_plan`` (resolved once per shape; ``set_default_table``
+    clears it)."""
+    knobs = autotune.dispatch_knobs("centering", (z, n, m), torch.float32,
+                                    device)
+    return plan_of(z, n, m, knobs) if knobs else center_plan(z, n, m)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -92,11 +122,13 @@ def merge_batch_dims(shape: Tuple[int, ...], strides: Tuple[int, ...]
     return tuple(merged)
 
 
-def center_tiles(k: torch.Tensor) -> torch.Tensor:
+def center_tiles(k: torch.Tensor,
+                 plan: Optional[CenterPlan] = None) -> torch.Tensor:
     """out[..., i, j] = k[..., i, j] - colmean[..., j] - rowmean[..., i] +
     totmean[...] of every (n, m) block of k (..., n, m), fp32 at any
-    strides, on the card. Returns k's shape, contiguous fp32. Counts one
-    launch per centring."""
+    strides, on the card. ``plan``: the launch plan (None:
+    ``dispatch_plan``, the tile table's or the derived one). Returns k's
+    shape, contiguous fp32. Counts one launch per centring."""
     dev = k.device
     if dev.type != "cuda" or k.dtype != torch.float32 or k.dim() < 2:
         raise ValueError(f"k must be a float32 CUDA tensor of (..., n, m), "
@@ -111,7 +143,8 @@ def center_tiles(k: torch.Tensor) -> torch.Tensor:
     sn, sm = k.stride()[-2:]
     if min(z1, z2, n, m) < 1:
         raise ValueError(f"empty centering operand {shape}")
-    plan = center_plan(z1 * z2, n, m)
+    if plan is None:
+        plan = dispatch_plan(z1 * z2, n, m, dev)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     scratch = None if plan.small else torch.empty(
         (plan.scratch_floats(z1 * z2, n, m),), dtype=torch.float32,
@@ -131,4 +164,5 @@ def center_tiles(k: torch.Tensor) -> torch.Tensor:
 
 center_tiles.launches = 0
 
-__all__ = ["CenterPlan", "center_plan", "center_tiles", "merge_batch_dims"]
+__all__ = ["CenterPlan", "center_plan", "center_tiles", "dispatch_plan",
+           "merge_batch_dims", "plan_of", "small_fits"]

@@ -10,11 +10,13 @@ current stream.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from ...core.kernels_math import KernelSpec
+from .. import autotune
 from .._build import load_library
 from .._util import (SMS, cdiv, check_kernel_operand, check_launch,
                      launch_guard, stream_of)
@@ -41,8 +43,22 @@ def tile_rows(z: int, n: int, k: int, symmetric: bool) -> int:
     return 128 if z * cdiv(n, 128) * cdiv(k, TILE_COLS) >= SMS else 64
 
 
+@autotune.register_dispatch_cache
+@functools.lru_cache(maxsize=1024)
+def dispatch_rows(z: int, n: int, k: int, m: int, symmetric: bool,
+                  dtype: torch.dtype, device: torch.device) -> int:
+    """Output rows per block of a launch on ``device``: the tile table's
+    entry for this shape's bucket on this card where there is one, else
+    ``tile_rows`` (resolved once per shape; ``set_default_table`` clears
+    it)."""
+    shape = (z, n, m) if symmetric else (z, n, k, m)
+    knobs = autotune.dispatch_knobs("gram", shape, dtype, device)
+    return knobs["rows"] if knobs else tile_rows(z, n, k, symmetric)
+
+
 def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
-               gamma: torch.Tensor) -> torch.Tensor:
+               gamma: torch.Tensor, rows: Optional[int] = None
+               ) -> torch.Tensor:
     """K[z, i, j] = kfun(x[z, i], y[z, j]) on the card's tensor cores.
 
     x (Z, n, m) and y (Z, k, m) contiguous, each fp32 or bf16 (a bf16
@@ -50,8 +66,10 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
     the bits of its widened fp32 copy); ``y=None`` means y = x: the operand
     is split once and only tiles on or above the diagonal run, each
     mirrored, so K equals K^T exactly. gamma a 0-d fp32 tensor (read on the
-    device, so no host sync). Returns (Z, n, k) fp32. Counts one launch per
-    Gram (split passes included), and its bf16 launches apart.
+    device, so no host sync). ``rows``: output rows per block, 64 or 128
+    (None: ``dispatch_rows``, the tile table's or the derived choice).
+    Returns (Z, n, k) fp32. Counts one launch per Gram (split passes
+    included), and its bf16 launches apart.
     """
     dev = x.device
     check_kernel_operand("x", x, 3, dev, OPERAND_DTYPES)
@@ -67,11 +85,13 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
                              f"y {tuple(y.shape)}")
     if min(z, n, k, m) < 1:
         raise ValueError(f"empty gram operands: x {tuple(x.shape)}")
+    if rows is None:
+        rows = dispatch_rows(z, n, k, m, symmetric, x.dtype, dev)
     x_bf16 = x.dtype == torch.bfloat16
     y_bf16 = not symmetric and y.dtype == torch.bfloat16
     mp = padded_stride(m)
-    rows = n if symmetric else n + k          # rows split: hi, lo, norm
-    scratch = torch.empty((z * rows * (2 * mp + 1),), dtype=torch.float32,
+    split = n if symmetric else n + k         # rows split: hi, lo, norm
+    scratch = torch.empty((z * split * (2 * mp + 1),), dtype=torch.float32,
                           device=dev)
     out = torch.empty((z, n, k), dtype=torch.float32, device=dev)
     lib = load_library()
@@ -80,7 +100,7 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
             x.data_ptr(), int(x_bf16), None if symmetric else y.data_ptr(),
             int(y_bf16), scratch.data_ptr(), gamma.data_ptr(),
             out.data_ptr(), z, n, k, m,
-            mp, tile_rows(z, n, k, symmetric), KINDS[spec.kind],
+            mp, rows, KINDS[spec.kind],
             int(spec.degree), float(spec.coef), float(spec.scale),
             int(bool(spec.normalize)), stream_of(dev))
     check_launch("gram", rc)
@@ -92,4 +112,5 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
 gram_tiles.launches = 0
 gram_tiles.bf16_launches = 0       # of launches: a bf16 operand
 
-__all__ = ["KINDS", "gram_tiles", "padded_stride", "tile_rows"]
+__all__ = ["KINDS", "dispatch_rows", "gram_tiles", "padded_stride",
+           "tile_rows"]

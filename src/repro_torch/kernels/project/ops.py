@@ -24,19 +24,21 @@ import torch
 from ...core.kernels_math import KernelSpec
 from .._util import on_card
 from ..gram.ops import gamma_operand
-from .project import prepare_support, project_tiles
+from .project import dispatch_slices, prepare_support, project_tiles
 from .ref import project_partial_reference, project_reference
 
 
 def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
               row_mean_coef: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
-              gamma: Optional[torch.Tensor] = None
+              gamma: Optional[torch.Tensor] = None,
+              slices: Optional[int] = None
               ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The per-model half of ``project_op``, done once: returns a function
     of a (B, M) query batch giving its (B, C) scores. On the card the
-    support norms, gamma and the coefficients with their ones column are
-    formed here, with the support as the kernel reads it
+    support norms, gamma, the coefficients with their ones column and the
+    feature slicing (``slices``, else the tile table's or the derived one)
+    are formed here, with the support as the kernel reads it
     (``prepare_support``, one launch of the split pass), so each call is
     the kernel's one C call and nothing else; on the CPU each call is the
     plain version."""
@@ -58,8 +60,11 @@ def projector(spec: KernelSpec, x_support: torch.Tensor, coefs: torch.Tensor,
     a_ext = torch.cat([coefs.to(torch.float32),
                        torch.ones((l, 1), dtype=torch.float32, device=dev)],
                       dim=1)
+    if slices is None:
+        slices = dispatch_slices("project", l, xs.shape[1], dev)
     return lambda xq: project_tiles(spec, xq.contiguous(), support, a_ext, g,
-                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l)
+                                    cvec=cvec, bvec=bvec, inv_l=1.0 / l,
+                                    slices=slices)
 
 
 def project_op(spec: KernelSpec, x_query: torch.Tensor,
@@ -84,12 +89,14 @@ def project_op(spec: KernelSpec, x_query: torch.Tensor,
 
 def partial_projector(spec: KernelSpec, x_support: torch.Tensor,
                       coefs_ext: torch.Tensor,
-                      gamma: Optional[torch.Tensor] = None
+                      gamma: Optional[torch.Tensor] = None,
+                      slices: Optional[int] = None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The per-shard half of ``project_partial_op``, done once: returns a
     function of a (B, M) query batch giving its raw (B, C+1) partial. On the
     card the support as the kernel reads it (``prepare_support``, one launch
-    of the split pass) and gamma are formed here, so each call is the
+    of the split pass), gamma and the feature slicing (``slices``, else the
+    tile table's or the derived one) are formed here, so each call is the
     kernel's one C call; on the CPU each call is the plain version."""
     if x_support.shape[0] != coefs_ext.shape[0]:
         raise ValueError(f"project shapes disagree: x_support "
@@ -102,7 +109,11 @@ def partial_projector(spec: KernelSpec, x_support: torch.Tensor,
     support = prepare_support(spec, xs)
     g = gamma_operand(spec, xs, gamma)
     a_ext = coefs_ext.to(torch.float32).contiguous()
-    return lambda xq: project_tiles(spec, xq.contiguous(), support, a_ext, g)
+    if slices is None:
+        slices = dispatch_slices("project_partial", xs.shape[0], xs.shape[1],
+                                 xs.device)
+    return lambda xq: project_tiles(spec, xq.contiguous(), support, a_ext, g,
+                                    slices=slices)
 
 
 def project_partial_op(spec: KernelSpec, x_query: torch.Tensor,

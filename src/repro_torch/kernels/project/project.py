@@ -18,11 +18,13 @@ many other queries share its batch.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ...core.kernels_math import KernelSpec
+from .. import autotune
 from .._build import load_library
 from .._util import (SMS, cdiv, check_kernel_operand, check_launch, on_card,
                      ptr, stream_of)
@@ -46,6 +48,20 @@ def support_chunking(n_support: int) -> tuple:
     while slices < MAX_SLICES and tiles * slices * 2 <= SMS // 2:
         slices *= 2
     return tiles, slices
+
+
+@autotune.register_dispatch_cache
+@functools.lru_cache(maxsize=1024)
+def dispatch_slices(op: str, n_support: int, m: int,
+                    device: torch.device) -> int:
+    """Feature slices of ``op`` ("project" or "project_partial") over L
+    support rows on ``device``: the tile table's entry for (L, M)'s bucket
+    on this card where there is one, else ``support_chunking``'s — a
+    function of L and M alone either way, never of the batch (resolved
+    once per shape; ``set_default_table`` clears it)."""
+    knobs = autotune.dispatch_knobs(op, (n_support, m), torch.float32,
+                                    device)
+    return knobs["slices"] if knobs else support_chunking(n_support)[1]
 
 
 class Support(NamedTuple):
@@ -116,7 +132,8 @@ def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
 
 def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
                   a_ext: torch.Tensor, gamma: torch.Tensor, cvec=None,
-                  bvec=None, inv_l: float = 0.0) -> torch.Tensor:
+                  bvec=None, inv_l: float = 0.0,
+                  slices: Optional[int] = None) -> torch.Tensor:
     """Fused projection on the card.
 
     xq (B, M) queries, fp32 or bf16 (a bf16 slab is widened on load and
@@ -127,8 +144,10 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
     splits the queries itself and sums their norms in a batch-independent
     order. With ``cvec``/``bvec`` (C,) the result is (B, C) scores
     ``P[:, :C] + P[:, C] * inv_l * cvec + bvec``; without them it is the raw
-    (B, C+1) partial ``K @ a_ext``. Besides ``launches``, the wrapper counts
-    its bf16 launches and its raw-partial launches.
+    (B, C+1) partial ``K @ a_ext``. ``slices``: feature slices per support
+    tile, 1, 2, 4 or 8 (None: ``dispatch_slices``; a projector resolves it
+    once). Besides ``launches``, the wrapper counts its bf16 launches and
+    its raw-partial launches.
     """
     dev = xq.device
     check_kernel_operand("xq", xq, 2, dev, (torch.float32, torch.bfloat16))
@@ -167,7 +186,10 @@ def project_tiles(spec: KernelSpec, xq: torch.Tensor, support: Support,
             if t.shape != (cp1 - 1,):
                 raise ValueError(f"{name} must be ({cp1 - 1},), got "
                                  f"{tuple(t.shape)}")
-    tiles, slices = support_chunking(l)
+    tiles = cdiv(l, SUPPORT_TILE)
+    if slices is None:
+        slices = dispatch_slices("project" if with_epilogue
+                                 else "project_partial", l, m, dev)
     lib = load_library()
     # the queries' TF32 halves and norms, then the support tiles' partials
     scratch = torch.empty((b * (2 * mp + 1) + tiles * b * cp1,),
@@ -193,5 +215,5 @@ project_tiles.launches = 0
 project_tiles.bf16_launches = 0      # of launches: bf16 query slabs
 project_tiles.partial_launches = 0   # of launches: raw partials, no epilogue
 
-__all__ = ["CP1_MAX", "Support", "prepare_support", "project_tiles",
-           "split_tf32", "support_chunking"]
+__all__ = ["CP1_MAX", "Support", "dispatch_slices", "prepare_support",
+           "project_tiles", "split_tf32", "support_chunking"]

@@ -1,7 +1,7 @@
 """The port's launchers and what they share: device layouts (``mesh``: the
 serving mesh, the ring's process group), the process environment
-(``env``) and the serving launcher (``python -m
-repro_torch.launch.serve_kpca``)."""
+(``env``) and the serving launchers (``python -m
+repro_torch.launch.serve_kpca``, ``python -m repro_torch.launch.serve``)."""
 
 from .mesh import make_process_group, make_serving_mesh
 

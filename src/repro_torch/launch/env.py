@@ -6,9 +6,10 @@ Environment variables understood here:
   * ``REPRO_PLATFORM`` -> the launchers' device: ``cuda`` (the default),
     ``gpu`` (which means ``cuda``) or ``cpu``; ``tpu`` and anything else
     are refused.
-  * ``REPRO_TILE_TABLE`` -> to be read by the port's kernel autotuner (not
-    ported yet); listed here because this layer is where deployments set
-    it.
+  * ``REPRO_TILE_TABLE`` -> a tile table file for the kernels' launch
+    choices, read once by ``repro_torch.kernels.autotune.default_table``
+    before the first kernel dispatch; listed here because this layer is
+    where deployments set it.
 
 The JAX package's other fields (``enable_x64``, ``host_devices``,
 ``gpu_flags``, ``preallocate_gpu``, ``extra_xla_flags``) configure XLA

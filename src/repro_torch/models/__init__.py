@@ -1,0 +1,8 @@
+"""The LM substrate's models (counterpart of ``repro.models``): the decoder
+families (dense, MoE, VLM backbone) with GQA, SWA, MLA and MoE layers, in
+plain PyTorch on one device."""
+
+from .convert import params_from_jax
+from .model import Model, build_model
+
+__all__ = ["Model", "build_model", "params_from_jax"]

@@ -24,6 +24,7 @@ pinned memory when the engine serves from the card):
     (``pack_slabs`` arena-aware plan packing and ``iter_slabs`` head-to-tail
     rows).
   * per-request accounting (``RequestStats``/``EngineStats``).
+  * ``left_pad_pack`` — the decode engine's prompt waves, left-padded.
 
 Payloads are opaque to the queue: only their row count ``n`` matters to it
 and to the packers, which copy rows of whatever dtype the arena holds.
@@ -790,9 +791,30 @@ def pack_slabs(entries: Sequence[Request], max_batch: int,
     return slabs, plan, frames
 
 
+def left_pad_pack(prompts: Sequence[Sequence[int]], slots: int,
+                  pad_id: int = 0) -> Tuple[np.ndarray, int]:
+    """Pack up to ``slots`` token prompts into one LEFT-padded int32 wave.
+
+    Returns (toks, plen): toks is (slots, plen) with prompt i right-aligned
+    in row i (rows beyond len(prompts) stay all-pad), plen the longest
+    prompt. Left padding keeps the last prompt token in the last column, so
+    one uniform-length prefill position works for the whole wave.
+    """
+    if not prompts:
+        raise ValueError("left_pad_pack needs at least one prompt")
+    if len(prompts) > slots:
+        raise ValueError(f"{len(prompts)} prompts > {slots} slots")
+    plen = max(len(p) for p in prompts)
+    toks = np.full((slots, plen), pad_id, np.int32)
+    for i, prompt in enumerate(prompts):
+        if len(prompt):
+            toks[i, plen - len(prompt):] = prompt
+    return toks, plen
+
+
 __all__ = [
     "EngineStats", "FlushSlots", "PER_REQUEST_WINDOW", "QueueFullError",
     "Request", "RequestFuture", "RequestQueue", "RequestStats", "ShedError",
     "SlabArena", "SlotFuture", "bucket_for", "format_latency", "host_array",
-    "iter_slabs", "pack_slabs", "pow2_buckets",
+    "iter_slabs", "left_pad_pack", "pack_slabs", "pow2_buckets",
 ]

@@ -1054,3 +1054,152 @@ def test_ring_bf16_messages_on_card(nccl_world1):
                              device=dev)
     assert torch.isfinite(bf16.alpha_hist).all()
     assert led.per_iter.bytes == 3 * 4 * 32 * 2
+
+
+# ---- the tile autotuner on the card ------------------------------------
+
+@pytest.fixture
+def empty_table(cuda):
+    from repro_torch.kernels import autotune
+    autotune.set_default_table(autotune.TileTable())
+    yield autotune
+    autotune.set_default_table(None)
+
+
+def test_empty_table_dispatch_is_derived_on_card(empty_table):
+    from repro_torch.kernels.centering.centering import (center_plan,
+                                                         dispatch_plan)
+    from repro_torch.kernels.gram.gram import dispatch_rows, tile_rows
+    from repro_torch.kernels.project.project import (dispatch_slices,
+                                                     support_chunking)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert empty_table.device_backend(dev.index) == \
+        "cuda:" + torch.cuda.get_device_name(dev.index)
+    for z, n, k, sym in ((20, 100, 100, False), (1, 2000, 2000, True),
+                         (20, 500, 500, True)):
+        assert dispatch_rows(z, n, k, 784, sym, torch.float32, dev) == \
+            tile_rows(z, n, k, sym)
+    for l in (125, 500, 2000):
+        assert dispatch_slices("project", l, 784, dev) == \
+            support_chunking(l)[1]
+    for z, n in ((1, 2000), (20, 100)):
+        assert dispatch_plan(z, n, n, dev) == center_plan(z, n, n)
+
+
+def test_gram_rows_64_and_128_give_the_same_bits(cuda):
+    """The autotuner holds gram candidates to the default bitwise: both
+    tile heights accumulate each output over the same K-tiles in order."""
+    spec = KernelSpec(kind="rbf", gamma=1.0 / 30)
+    x = _rand((20, 100, 784), 1, cuda, 0.05)
+    y = _rand((20, 100, 784), 2, cuda, 0.05)
+    g = torch.tensor(1.0 / 30, device=cuda)
+    assert torch.equal(gram_tiles(spec, x, y, g, rows=64),
+                       gram_tiles(spec, x, y, g, rows=128))
+
+
+def test_tune_on_card_writes_and_hits_the_table(empty_table):
+    at = empty_table
+    spec = KernelSpec(kind="rbf")
+    table = at.TileTable()
+    x = _rand((20, 100, 784), 3, torch.device("cuda"), 0.05)
+    y = _rand((20, 100, 784), 4, torch.device("cuda"), 0.05)
+    knobs, trials = at.tune_gram(spec, x, y, k=2, table=table)
+    assert knobs["rows"] in (64, 128) and len(trials) == 2
+    xs = _rand((500, 784), 5, torch.device("cuda"), 0.05)
+    coefs = _rand((500, 2), 6, torch.device("cuda"))
+    queries = [_rand((b, 784), 7 + b, torch.device("cuda"), 0.05)
+               for b in (8, 128)]
+    knobs, trials = at.tune_project(spec, queries, xs, coefs, k=2,
+                                    table=table)
+    assert knobs["slices"] in (1, 2, 4, 8) and 1 <= len(trials) <= 4
+    km = gram_op(spec, _rand((20, 100, 784), 8, torch.device("cuda"), 0.05),
+                 gamma=torch.tensor(0.3, device="cuda"))
+    knobs, trials = at.tune_centering(km, k=2, table=table)
+    assert len(trials) == len(at.centering_candidates(20, 100, 100))
+    assert len(table) == 3
+    for entry in table.entries.values():
+        assert entry["us"] > 0 and entry["default_us"] > 0
+        assert entry["us"] <= entry["default_us"]
+    # a second search answers from the table
+    assert at.tune_gram(spec, x, y, k=2, table=table)[1] == []
+    assert at.tune_project(spec, queries, xs, coefs, table=table)[1] == []
+
+
+def test_batch_invariance_under_a_tuned_table(empty_table):
+    """A table entry changes project's slicing for every batch of one L, so
+    a query's scores alone are bitwise its row of a B128 slab, and within
+    2e-5 of the default slicing's."""
+    from repro_torch.kernels.project.project import support_chunking
+    at = empty_table
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = KernelSpec(kind="rbf", gamma=0.3)
+    xs = _rand((2000, 784), 9, dev, 0.05)
+    coefs = _rand((2000, 2), 10, dev)
+    xq = _rand((128, 784), 11, dev, 0.05)
+    default = support_chunking(2000)[1]
+    tuned = 8 if default != 8 else 1
+    before = project_op(spec, xq, xs, coefs)
+    table = at.TileTable()
+    table.put("project", (2000, 784), torch.float32, at.device_backend(
+        dev.index), {"slices": tuned}, 1e-5)
+    at.set_default_table(table)
+    from repro_torch.kernels.project.ops import projector
+    project = projector(spec, xs, coefs)
+    slab = project(xq)
+    for i in (0, 5, 127):
+        assert torch.equal(project(xq[i:i + 1]), slab[i:i + 1])
+    torch.testing.assert_close(slab, before, rtol=2e-5, atol=2e-5)
+
+
+def test_center_plans_agree_on_card(cuda):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.centering.centering import plan_of
+    for shape in ((1, 2000, 2000), (20, 100, 100)):
+        k = _rand(shape, 12, cuda)
+        want = center_reference(k)
+        for knobs in autotune.centering_candidates(*shape):
+            got = center_tiles(k, plan=plan_of(*shape, knobs))
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ---- the LM serving path on the card ------------------------------------
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b"])
+def test_lm_decode_on_card_matches_cpu(cuda, name):
+    """Smoke-size weights drawn on the CPU and copied to the card: the
+    greedy tokens agree step by step (a differing token only at a near tie,
+    within 2e-2 of the CPU's choice), the logits within 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    cfg = get_config(name, smoke=True)
+    cpu_model = build_model(cfg, device="cpu")
+    params, _ = cpu_model.init(0)
+    card_model = build_model(cfg, device="cuda")
+    card_params = {k: v.to(cuda) for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=rng.integers(4, 12)).tolist()
+               for _ in range(8)]
+    calls = {}
+    outs = {}
+    for side, model, p in (("cpu", cpu_model, params),
+                           ("card", card_model, card_params)):
+        eng = DecodeEngine(model, p, 4, ServeConfig(max_len=64,
+                                                    max_new_tokens=16))
+        seen = calls.setdefault(side, [])
+        inner = eng._sample
+        eng._sample = lambda lg, inner=inner, seen=seen: (
+            seen.append(lg.float().cpu().numpy()), inner(lg))[1]
+        outs[side] = eng.generate(prompts)
+    steps = 17
+    for w in range(2):
+        for s in range(steps):
+            want, got = calls["cpu"][w * steps + s], \
+                calls["card"][w * steps + s]
+            np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+            wt, gt = want.argmax(-1), got.argmax(-1)
+            if (wt != gt).any():
+                rows = np.nonzero(wt != gt)[0]
+                assert (want[rows, wt[rows]] - want[rows, gt[rows]]
+                        <= 2e-2).all()
+                break
