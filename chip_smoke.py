@@ -109,13 +109,34 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            tokens/s and peak memory, one decode step traced (wall, device
            time, idle share, beside the time to read every weight once),
            the MoE capacity dispatch against the dense expert loop; the smoke-size llama and mixtral on the card
-           against the CPU: the same greedy tokens, logits within 2e-2.
+           against the CPU: the same greedy tokens, logits within 2e-2;
+  lm_train the LM training half: llama3.2-3b at full width and depth
+           (28 x 3072, vocab 128256), bf16 params and fp32 moments, remat
+           "full", 6 AdamW steps (lr 3e-4, cosine_with_warmup(1, 6)) of
+           TokenStream(batch 4, seq 128) through train(): every loss
+           finite, the first within 2.5 of ln V, no step skipped; the loss
+           trajectory, first and warm step time, tokens/s and peak
+           allocation; one warm step traced; a step with layers sliced by a
+           select per layer against one unbind per stack (time and peak);
+           then the DKPCA activation probe on the trained params (96 x 16
+           tokens: J=3 nodes of N=32, M=3072, 8 iterations): not skipped,
+           finite, gram and admm_step launched; its outputs equal to the
+           card run of the same build_setup + run_admm, whose alpha the CPU
+           run from the card's alpha0 gives within 2e-4 max|alpha|; at
+           smoke size, the fp32 llama3.2-3b-smoke for 8 steps on the card
+           and the CPU from the same weights (losses within 1e-4 relative,
+           params within 1e-4 max|p|), one bf16 step of the mixtral and
+           deepseek smoke configs (loss and grad norm within 2e-2), 8
+           straight steps against 4 + checkpoint + resume + 4 (bitwise),
+           save_checkpoint_async (its snapshot, found by latest_step), and
+           remat "none", "full" and "dots" giving the same grads (bitwise).
 
 Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
 faults; dkpca; serve_kpca, counted in the launcher's own process, which
 starts at zero; autotune; lm_serve, which must launch none of the four
-kernels) is driven with every kernel's launch count zeroed just
-before it and read just after; a kernel the path must run and never
+kernels; lm_train, whose probe must launch gram and admm_step) is driven
+with every kernel's launch count zeroed just before it and read just
+after; a kernel the path must run and never
 launched fails the run (the kernels, breakdown and serve_stream phases
 count nowhere, nor do the references a path's checks compute after its
 count is read).
@@ -183,6 +204,16 @@ LM_FULL = (("llama3.2-3b", None), ("mixtral-8x22b", 2),
            ("deepseek-v2-236b", 2))
 LM_SMOKE = ("llama3.2-3b", "mixtral-8x22b")
 LM_PROMPTS, LM_SLOTS, LM_MAX_LEN, LM_NEW = 8, 4, 64, 16
+# lm_train: llama3.2-3b at full width and depth, 6 AdamW steps of 4 x 128
+# tokens; the probe's batch (J=3 nodes of N=32 pooled activations, M=3072)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3.2-3b", 6, 4, 128
+TRAIN_FIRST_LOSS_SLACK = 2.5   # tests/test_arch_smoke.py: |loss - ln V|
+PROBE_BATCH, PROBE_SEQ, PROBE_ITERS, PROBE_NODE = 96, 16, 8, 32
+PROBE_TOL = 2e-4               # card vs CPU alpha from one alpha0, x max|a|
+TRAIN_SMOKE_STEPS = 8
+TRAIN_SMOKE_TOL = 1e-4         # fp32 smoke, card vs CPU: losses (relative),
+                               # final params (x max|p| of each tensor)
+TRAIN_MOE = ("mixtral-8x22b", "deepseek-v2-236b")   # bf16, one step, 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -361,6 +392,13 @@ def gram_record(spec, x, g, label, y=None):
     check(fp64_err <= 2.0 * fp64_err_plain,
           f"gram {label}: error against float64 {fp64_err:.3g} > 2 x the "
           f"plain version's {fp64_err_plain:.3g}")
+    if not cross:     # the diagonal is K(x, x) from the row's own norm
+        eye = torch.eye(n, dtype=torch.bool, device=x.device)
+        for side, k_ in (("", got), ("_plain", want)):
+            d = (k_.double() - exact).abs()
+            extra[f"fp64_err{side}_diag"] = float(d[:, eye].max())
+            extra[f"fp64_err{side}_offdiag"] = float(
+                d[:, ~eye].max()) if n > 1 else 0.0
     return dict(
         shape=label, **errors(got, want), **extra,
         fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
@@ -518,7 +556,7 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     from repro_torch.core import build_setup, oos, ring
-    from repro_torch.core.kernels_math import gram
+    from repro_torch.core.kernels_math import gram, resolve_gamma
     from repro_torch.data import kpca_dataset
     from repro_torch.kernels import (project_partial_op,
                                      project_partial_reference)
@@ -547,6 +585,20 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     # bf16 input: the split pass's bf16 instance, on the setup's batch
     records["gram_bf16"] = [gram_record(spec, slots.bfloat16().contiguous(),
                                         g, "20x500x500x784xbf16")]
+    # lm_train's probe at llama3.2-3b's width: 3 nodes of 32 pooled
+    # activations (M = 3072; seeded rows at the embeddings' scale), the
+    # global mean statistics' pooled Gram and the nodes' slot Grams
+    acts = torch.randn((PROBE_BATCH, 3072), device=dev, generator=torch
+                       .Generator(device=dev).manual_seed(2)) * 0.005
+    g_probe = resolve_gamma(spec, acts)
+    probe_nodes = acts.reshape(3, PROBE_NODE, 3072)
+    records["gram"] += [
+        gram_record(spec, acts[None].contiguous(), g_probe,
+                    "96x96x3072 probe"),
+        gram_record(spec, probe_nodes[torch.as_tensor(
+            [[0, 2, 1], [1, 0, 2], [2, 1, 0]], device=dev)]
+            .reshape(3, 3 * PROBE_NODE, 3072).contiguous(), g_probe,
+            "3x96x96x3072 probe")]
 
     # project: the served models' real coefficients and centering terms (a
     # central fit on the pooled data, and its 500-landmark compression)
@@ -588,7 +640,10 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     # the fused update on the fit's own setup
     setup = build_setup(nodes, ring(20, hops=2), spec, center="global",
                         gamma=g, device=dev)
-    records["admm_step"] = [admm_record(setup, "J20xN100xS5")]
+    records["admm_step"] = [admm_record(setup, "J20xN100xS5"),
+                            admm_record(build_setup(
+                                probe_nodes, ring(3, hops=1), spec,
+                                device=dev), "J3xN32xS3 probe")]
     emit("kernels", tolerance=TOLERANCE, records=records)
     for name, recs in records.items():
         worst = max(r["max_scaled_err"] for r in recs)
@@ -2017,6 +2072,288 @@ def phase_lm_serve(dev) -> dict:
     return launches
 
 
+def rel_close(got: float, want: float, tol: float) -> bool:
+    return math.isfinite(got) and abs(got - want) <= tol * abs(want)
+
+
+def params_within(got: dict, want: dict, tol: float) -> tuple:
+    """(all within tol * max|p| of each tensor, the worst ratio)."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.float().cpu()
+        d = float((got[k].float().cpu() - w).abs().max())
+        worst = max(worst, d / max(float(w.abs().max()), 1e-30))
+    return worst <= tol, worst
+
+
+def same_state(a: dict, b: dict) -> bool:
+    import torch
+    return all(torch.equal(a[g][k].cpu(), b[g][k].cpu())
+               for g in ("params", "m", "v") for k in a[g]) \
+        and int(a["step"]) == int(b["step"])
+
+
+def timed_step(torch, step_fn, state, batch) -> dict:
+    """One step on the host clock, synchronised at both ends, and the peak
+    allocation above what was held before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    return dict(s=time.perf_counter() - t0,
+                peak_above_state_gb=(torch.cuda.max_memory_allocated()
+                                     - held) / 1e9)
+
+
+def select_slices(stacked):
+    """Layers sliced by a select per layer (``v[i]``): what
+    ``common.layer_slices`` replaced, for the unbind-vs-select timing."""
+    from repro_torch.models.common import n_stacked
+    return [{k: v[i] for k, v in stacked.items()}
+            for i in range(n_stacked(stacked))]
+
+
+def probe_fit(acts, spec, dev, alpha0=None):
+    """The probe's single-device branch on pooled activations (J=3, N=32,
+    ring(3, 1)): (setup, result)."""
+    from repro_torch.core import RhoSchedule, build_setup, ring, run_admm
+    j = PROBE_BATCH // PROBE_NODE
+    x_nodes = acts[: j * PROBE_NODE].reshape(j, PROBE_NODE, -1)
+    setup = build_setup(x_nodes, ring(j, hops=1), spec, device=dev)
+    return setup, run_admm(setup, n_iters=PROBE_ITERS, rho2=RhoSchedule(),
+                           alpha0=alpha0)
+
+
+def train_smoke_checks(dev) -> dict:
+    """The smoke-size checks of lm_train (card against CPU, resume, the
+    async checkpoint, remat); none of them launches a kPCA kernel."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint_async)
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, adamw_init,
+                                   cosine_with_warmup, global_norm)
+    from repro_torch.train import TrainConfig, build_train_step, train
+    from repro_torch.train.loop import (_flatten_state, _unflatten_state,
+                                        loss_and_grads)
+    out = {}
+    # fp32 llama3.2-3b-smoke, 8 steps from the same weights on both sides
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                              param_dtype="float32", compute_dtype="float32")
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, TRAIN_SMOKE_STEPS))
+    weights, _ = build_model(cfg, device="cpu").init(0)
+    runs = {}
+    for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = build_model(cfg, device=d)
+        _, step_fn = build_train_step(model, opt)
+        params = {k: v.clone().to(d) for k, v in weights.items()}
+        state = dict(params=params, **adamw_init(params))
+        data = TokenStream(cfg.vocab, TRAIN_BATCH, 32, seed=0,
+                           device=str(d))
+        losses = [float(step_fn(state, data.next_batch())[1]["loss"])
+                  for _ in range(TRAIN_SMOKE_STEPS)]
+        runs[side] = (losses, state["params"])
+    loss_ok = all(rel_close(a, b, TRAIN_SMOKE_TOL)
+                  for a, b in zip(runs["card"][0], runs["cpu"][0]))
+    p_ok, worst = params_within(runs["card"][1], runs["cpu"][1],
+                                TRAIN_SMOKE_TOL)
+    out["fp32_card_vs_cpu"] = dict(
+        steps=TRAIN_SMOKE_STEPS, losses_card=runs["card"][0],
+        losses_cpu=runs["cpu"][0],
+        max_rel_loss_err=max(abs(a - b) / abs(b) for a, b in zip(
+            runs["card"][0], runs["cpu"][0])),
+        max_param_err_over_max_abs=worst)
+    check(loss_ok and p_ok, f"lm_train smoke fp32: card against CPU "
+                            f"{out['fp32_card_vs_cpu']}")
+    # bf16 MoE smoke configs: one step's loss and grad norm
+    moe = {}
+    for name in TRAIN_MOE:
+        mcfg = get_config(name, smoke=True)
+        w, _ = build_model(mcfg, device="cpu").init(0)
+        got = {}
+        for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = build_model(mcfg, device=d)
+            batch = TokenStream(mcfg.vocab, 2, 32, seed=0,
+                                device=str(d)).next_batch()
+            loss, _, grads = loss_and_grads(
+                model, {k: v.to(d) for k, v in w.items()}, batch)
+            got[side] = (float(loss), float(global_norm(grads)))
+        moe[name] = dict(loss=got, ok=all(
+            math.isfinite(c) and abs(c - w) <= LM_TOL * (1 + abs(w))
+            for c, w in zip(got["card"], got["cpu"])))
+        check(moe[name]["ok"], f"lm_train {name} smoke: card against CPU "
+                               f"{moe[name]}")
+    out["moe_one_step"] = moe
+    # resume on the card: 8 straight steps against 4 + checkpoint + 4
+    scfg = get_config(TRAIN_ARCH, smoke=True)
+    model = build_model(scfg, device=dev)
+    tcfg = lambda steps, d: TrainConfig(steps=steps, ckpt_dir=d,
+                                        ckpt_every=4, log_every=0)
+    stream = lambda: TokenStream(scfg.vocab, TRAIN_BATCH, 32, seed=0,
+                                 device=str(dev))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        straight, hs = train(model, opt, stream(), tcfg(8, f"{tmp}/a"))
+        train(model, opt, stream(), tcfg(4, f"{tmp}/b"))
+        data = stream()
+        resumed, hr = train(model, opt, data, tcfg(8, f"{tmp}/b"))
+        resume_ok = (hs["loss"][4:] == hr["loss"] and data.step == 8
+                     and same_state(straight, resumed))
+        out["resume"] = dict(bitwise=resume_ok, losses=hs["loss"],
+                             resumed_losses=hr["loss"])
+        check(resume_ok, f"lm_train resume: {out['resume']}")
+        # the async checkpoint: a snapshot, found by latest_step
+        flat = _flatten_state(resumed)
+        th = save_checkpoint_async(f"{tmp}/c", 8, flat,
+                                   metadata={"data_state": data.state()})
+        snap = {k: v.clone() for k, v in resumed["params"].items()}
+        for v in resumed["params"].values():
+            v.add_(1)                     # training goes on in place
+        th.join(timeout=120)
+        back, meta, step = restore_checkpoint(f"{tmp}/c")
+        back = _unflatten_state(back, device=dev)
+        async_ok = (not th.is_alive() and latest_step(f"{tmp}/c") == 8
+                    and step == 8 and meta["data_state"]["step"] == 8
+                    and all(torch.equal(back["params"][k], v)
+                            for k, v in snap.items()))
+        out["async_checkpoint"] = dict(ok=async_ok, step=step)
+        check(async_ok, "lm_train: save_checkpoint_async's step is missing "
+                        "or not the snapshot")
+    # remat "none", "full", "dots": the same grads on the card, bitwise
+    batch = TokenStream(scfg.vocab, TRAIN_BATCH, 32, seed=3,
+                        device=str(dev)).next_batch()
+    w, _ = model.init(1)
+    grads = {r: loss_and_grads(build_model(dataclasses.replace(
+        scfg, remat=r), device=dev), w, batch)[2]
+        for r in ("none", "full", "dots")}
+    remat_ok = all(torch.equal(grads[r][k], grads["none"][k])
+                   for r in ("full", "dots") for k in w)
+    out["remat_bitwise"] = remat_ok
+    check(remat_ok, "lm_train: remat modes give different grads")
+    return out
+
+
+def phase_lm_train(dev, spec) -> dict:
+    """The LM training half on the card (see the module docstring): the
+    full-width train() and the probe are the path whose launches count; the
+    checks after the count launch nothing the count needs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import initial_alpha
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.models import common as mcommon
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import TrainConfig, activation_probe, train
+    from repro_torch.train.loop import build_train_step
+    from repro_torch.train.probes import pooled_activations
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, TRAIN_STEPS))
+    data = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                       device=str(dev))
+    probe_batch = TokenStream(cfg.vocab, PROBE_BATCH, PROBE_SEQ, seed=1,
+                              device=str(dev)).next_batch()
+    zero_launches()
+    t0 = time.perf_counter()
+    state, hist = train(model, opt, data,
+                        TrainConfig(steps=TRAIN_STEPS, log_every=0))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run_probe = lambda: activation_probe(state["params"], probe_batch,
+                                         n_iters=PROBE_ITERS,
+                                         samples_per_node=PROBE_NODE)
+    t0 = time.perf_counter()
+    probe = run_probe()
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = read_launches("lm_train", ("gram", "admm_step"))
+    n_params = sum(p.numel() for p in state["params"].values())
+    losses = hist["loss"]
+    first_ok = abs(losses[0] - math.log(cfg.vocab)) < TRAIN_FIRST_LOSS_SLACK
+    check(all(math.isfinite(x) for x in losses) and first_ok
+          and not any(hist["skipped"]),
+          f"lm_train {TRAIN_ARCH}: losses {losses} (ln V "
+          f"{math.log(cfg.vocab):.4f}), skipped {hist['skipped']}")
+    check(not probe["skipped"] and all(
+        math.isfinite(v) for k, v in probe.items() if k != "skipped"),
+        f"lm_train probe: {probe}")
+    # the probe's code once more on the card: the same outputs; the CPU
+    # from the card's alpha0 within PROBE_TOL max|alpha|
+    acts = pooled_activations(state["params"], probe_batch["tokens"])
+    setup, res = probe_fit(acts, spec, dev)
+    energy = torch.linalg.norm(res.alpha, dim=1)
+    again = dict(consensus_residual=float(res.primal_residual[-1]),
+                 participation_mean=float(torch.mean(energy)),
+                 participation_cv=float(
+                     torch.std(energy, unbiased=False)
+                     / torch.clamp(torch.mean(energy), min=1e-9)))
+    same = all(probe.get(k) == v for k, v in again.items())
+    alpha0 = initial_alpha(setup, "local")
+    _, res_cpu = probe_fit(acts.cpu(), spec, "cpu", alpha0=alpha0.cpu())
+    scale = float(res.alpha.abs().max())
+    alpha_err = float((res_cpu.alpha - res.alpha.cpu()).abs().max())
+    check(same, f"lm_train probe: outputs {probe} differ from the card "
+                f"run of its code {again}")
+    check(alpha_err <= PROBE_TOL * scale,
+          f"lm_train probe: CPU alpha {alpha_err:.3g} from the card's > "
+          f"{PROBE_TOL} x {scale:.3g}")
+    _, probe_wall, probe_trace = timed_and_traced(torch, run_probe)
+    # one warm step traced; then a select per layer against one unbind
+    # per stack, in turns: unbind, select, select, unbind (warm)
+    _, step_fn = build_train_step(model, opt)
+    batch = data.next_batch()
+    _, wall, trace = timed_and_traced(torch, lambda: step_fn(state, batch))
+    slicing = {"unbind": [], "select": []}
+    for kind in ("unbind", "select", "select", "unbind"):
+        orig = mcommon.layer_slices
+        if kind == "select":
+            mcommon.layer_slices = select_slices
+        try:
+            slicing[kind].append(timed_step(torch, step_fn, state, batch))
+        finally:
+            mcommon.layer_slices = orig
+    warm = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    full = dict(
+        arch=TRAIN_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n_params, remat=cfg.remat,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        losses=losses, ln_vocab=math.log(cfg.vocab),
+        skipped=hist["skipped"], train_s=train_s,
+        first_step_s=hist["step_time"][0], warm_step_s_median=warm,
+        tokens_per_s=tokens / warm, peak_alloc_gb=peak,
+        state_gb=sum(t.numel() * t.element_size()
+                     for g in ("params", "m", "v")
+                     for t in state[g].values()) / 1e9,
+        warm_step=dict(wall_s=wall, tokens_per_s=tokens / wall, **trace),
+        layer_slicing=slicing)
+    del state, setup, res, acts
+    torch.cuda.empty_cache()
+    smoke = train_smoke_checks(dev)
+    emit("lm_train", full=full,
+         probe=dict(out=probe, first_s=probe_s,
+                    warm=dict(wall_s=probe_wall, **probe_trace),
+                    card_rerun_equal=same, alpha_cpu_err=alpha_err,
+                    alpha_max_abs=scale, tolerance=PROBE_TOL,
+                    nodes=PROBE_BATCH // PROBE_NODE, per_node=PROBE_NODE,
+                    features=cfg.d_model, iterations=PROBE_ITERS),
+         smoke=smoke, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     """Nodes whose init="local" warm start v1/sqrt(lam1) points against the
     central component, counted on the smaller side (the global sign is
@@ -2198,6 +2535,7 @@ def main(argv=None) -> int:
     path_launches["serve_kpca"] = phase_serve_kpca()
     path_launches["autotune"] = phase_autotune(dev, spec)
     path_launches["lm_serve"] = phase_lm_serve(dev)
+    path_launches["lm_train"] = phase_lm_train(dev, spec)
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the decentralized kernel PCA system.
 
 Laid out like the JAX package ``repro`` (``core/``, ``kernels/``,
-``serve/``, ``checkpoint/``, ``data/``) so each module's counterpart is easy
-to find; it imports neither JAX nor ``repro``.
+``serve/``, ``checkpoint/``, ``data/``, ``models/``, ``optim/``, ``train/``)
+so each module's counterpart is easy to find; it imports neither JAX nor
+``repro``.
 
 Conventions:
   * Entry points (``build_setup``, ``central_kpca``, ``fit_central``,

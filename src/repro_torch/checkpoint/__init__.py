@@ -1,3 +1,5 @@
-from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .checkpoint import (latest_step, restore_checkpoint, save_checkpoint,
+                         save_checkpoint_async)
 
-__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]
+__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint",
+           "save_checkpoint_async"]

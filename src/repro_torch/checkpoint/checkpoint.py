@@ -7,7 +7,14 @@ Layout (one directory per step):
 
 Writes are atomic: a temp dir is renamed into place only after the manifest
 is fsynced, so a killed job never leaves a torn checkpoint. Leaves are read
-back as numpy arrays; callers place them on a device.
+back as numpy arrays; callers place them on a device. numpy has no bf16:
+a bf16 leaf is written as the JAX package writes it (its raw 2-byte bits,
+numpy type ``V2``, manifest dtype "bfloat16") and read back as a bf16 CPU
+tensor.
+
+``save_checkpoint_async`` copies every leaf to host memory before it
+returns, then writes on a daemon thread, so training can go on (and change
+its tensors in place) while the disk write proceeds.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -31,8 +39,23 @@ def _escape(key: str) -> str:
 
 def _to_numpy(val) -> np.ndarray:
     if isinstance(val, torch.Tensor):
-        return val.detach().cpu().numpy()
+        t = val.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(val)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _from_file(path: str, dtype: str):
+    arr = np.load(path)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return arr
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any],
@@ -50,7 +73,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any],
         fname = _escape(key) + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            "file": fname, "shape": list(arr.shape),
+            "dtype": _dtype_name(arr)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -60,6 +84,20 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any],
     os.rename(tmp, final)
     _cleanup(ckpt_dir, keep_last)
     return final
+
+
+def save_checkpoint_async(ckpt_dir: str, step: int, tree: Dict[str, Any],
+                          metadata: Optional[dict] = None,
+                          keep_last: int = 3) -> threading.Thread:
+    """Snapshot every leaf to host memory (a copy, complete when this
+    returns: a later in-place change to a tensor does not reach the
+    checkpoint), then write it on a daemon thread; returns the thread."""
+    snapshot = {k: np.array(_to_numpy(v), copy=True) for k, v in tree.items()}
+    t = threading.Thread(
+        target=save_checkpoint, args=(ckpt_dir, step, snapshot),
+        kwargs={"metadata": metadata, "keep_last": keep_last}, daemon=True)
+    t.start()
+    return t
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -72,8 +110,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None):
-    """Returns (tree of numpy arrays, metadata, step); latest step by
-    default."""
+    """Returns (tree of numpy arrays, bf16 leaves as bf16 CPU tensors,
+    metadata, step); latest step by default."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -81,7 +119,7 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None):
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    tree = {key: np.load(os.path.join(d, info["file"]))
+    tree = {key: _from_file(os.path.join(d, info["file"]), info["dtype"])
             for key, info in manifest["leaves"].items()}
     return tree, manifest["metadata"], step
 
@@ -94,4 +132,5 @@ def _cleanup(ckpt_dir: str, keep_last: int):
                       ignore_errors=True)
 
 
-__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]
+__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint",
+           "save_checkpoint_async"]

@@ -34,6 +34,10 @@
 //     tile is written twice (direct and mirrored), both stores coalesced
 //     through a shared-memory copy of the finished tile, and a diagonal tile
 //     writes its upper triangle and mirrors it, so K equals K^T bit for bit.
+//     K's diagonal is K(x, x) from the split pass's fp32 norm (Epilogue::
+//     self_value): at llama3.2-3b's width (M = 3072) the tensor cores' x.x
+//     put the self-Gram 7.15e-7 from float64, 3x the plain fp32 version's
+//     error (measured on an NVIDIA H100 80GB HBM3 at a 700.00 W limit).
 // No atomics: every output element is written once, in a fixed order.
 
 #include <cuda.h>
@@ -186,12 +190,15 @@ gram_mma_kernel(const __grid_constant__ Maps maps,
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
 
   float* outz = out + (size_t)z * n * k;
-  const bool diag = symmetric && bi == bj;
-  // direct copy: consecutive threads along a row of the output
+  const bool diag = symmetric && bi == bj;   // row0 == col0: BM == kBN
+  // direct copy: consecutive threads along a row of the output; K's
+  // diagonal from the row's own norm (Epilogue::self_value)
   for (int e = tid; e < BM * kBN; e += kConsumerThreads) {
     const int r = e / kBN, c = e % kBN;
     if (row0 + r < n && col0 + c < k && (!diag || r <= c))
-      outz[(size_t)(row0 + r) * k + col0 + c] = tile[r * kEpiStride + c];
+      outz[(size_t)(row0 + r) * k + col0 + c] =
+          diag && r == c ? ep.self_value(sxz[row0 + r])
+                         : tile[r * kEpiStride + c];
   }
   if (!symmetric) return;
   // mirrored copy (K^T tile at (bj, bi)): consecutive threads along a row

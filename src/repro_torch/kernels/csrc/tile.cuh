@@ -63,6 +63,15 @@ struct Epilogue {
     if (normalize) v = v / sqrtf(fmaxf(a * b, 1e-12f));
     return v;
   }
+
+  // K(x, x) of a self-Gram's diagonal from the row's own a: what apply
+  // gives with the exact dot x.x (rbf: d2 = 0). The tensor cores' dot of a
+  // row with itself sums only positive products, so their accumulation's
+  // rounding does not cancel, and a + a - 2 dot would carry it into d2.
+  __device__ __forceinline__ float self_value(float a) const {
+    if (kind == kRbf) return 1.0f;
+    return normalize ? a / sqrtf(fmaxf(a * a, 1e-12f)) : a;
+  }
 };
 
 }  // namespace kpca

@@ -22,19 +22,24 @@ is batched with.
 
 On one card there is no mesh: ``constrain_act`` returns its input and the
 ``mesh`` arguments of the model functions are accepted and ignored.
-``ScanBlock.run`` is a loop over the stacked layer slices; its ``remat``
-and ``unroll`` arguments are accepted and ignored (this port runs the
-forward pass only, so nothing is rematerialized).
+``ScanBlock.run`` is a loop over the stacked layer slices, with the JAX
+package's rematerialization policies under autograd (``remat``: "full"
+recomputes each layer in the backward pass, "dots" keeps the outputs of
+the token-by-weight products and recomputes the rest); ``unroll`` is
+accepted and ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 
@@ -204,13 +209,47 @@ def merge(prefix: str, sub: Params) -> Params:
     return {f"{prefix}/{k}": v for k, v in sub.items()}
 
 
-def layer_at(stacked: Params, i: int) -> Params:
-    """Layer i of stacked parameters (views, no copy)."""
-    return {k: v[i] for k, v in stacked.items()}
+def layer_slices(stacked: Params) -> List[Params]:
+    """Every layer's parameters, each stacked tensor unbound once along its
+    leading 'layers' dim (views, no copy). Under autograd one
+    ``UnbindBackward`` per stack stacks the layers' grads once; ``v[i]``
+    per layer would give each layer a ``SelectBackward`` that builds a
+    zero tensor of the whole stack."""
+    parts = {k: torch.unbind(v, 0) for k, v in stacked.items()}
+    return [{k: parts[k][i] for k in parts}
+            for i in range(n_stacked(stacked))]
 
 
 def n_stacked(stacked: Params) -> int:
     return next(iter(stacked.values())).shape[0] if stacked else 0
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy (``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``): keep the outputs of products
+    with no batch dim, which here are the token-by-weight products
+    (``tok_einsum``'s blocks reach ``bmm`` with a batch of 1), and
+    recompute the rest, attention's batched products included."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(block_fn, remat: str):
+    """``block_fn`` under the remat policy, where autograd records: "full"
+    saves nothing inside the block (``jax.checkpoint`` with
+    ``nothing_saveable``), "dots" saves the weight products; anything else,
+    or no autograd, calls it as it is. The blocks draw no random numbers,
+    so no RNG state is kept for the recomputation."""
+    if not torch.is_grad_enabled() or remat not in ("full", "dots"):
+        return block_fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    return lambda p, carry: checkpoint(block_fn, p, carry, **kw)
 
 
 @dataclasses.dataclass
@@ -221,10 +260,12 @@ class ScanBlock:
     def run(block_fn, stacked: Params, carry, remat: str = "full",
             unroll=1):
         """carry -> loop over the leading 'layers' dim of every stacked
-        param; returns (carry, the per-layer outputs stacked, or None)."""
+        param, each layer under ``remat`` (see ``remat_block``); returns
+        (carry, the per-layer outputs stacked, or None)."""
+        fn = remat_block(block_fn, remat)
         outs = []
-        for i in range(n_stacked(stacked)):
-            carry, out = block_fn(layer_at(stacked, i), carry)
+        for layer in layer_slices(stacked):
+            carry, out = fn(layer, carry)
             outs.append(out)
         if not outs or outs[0] is None:
             return carry, None

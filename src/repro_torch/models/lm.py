@@ -1,5 +1,5 @@
 """Decoder-only language model assembly, dense / MoE / MLA / VLM-backbone
-(counterpart of ``repro.models.lm``): the forward passes only.
+(counterpart of ``repro.models.lm``).
 
 Layers are stacked on a leading axis, as in the JAX package, and applied
 one slice at a time. The same block code serves the loss, prefill (build
@@ -16,14 +16,16 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
 from .attention import (KVCache, MLACache, gqa_forward, init_gqa, init_mla,
                         mla_decode, mla_forward)
 from .common import (ParamCollector, ScanBlock, StackedCollector,
-                     constrain_act, dtype_of, layer_at, model_device,
-                     n_stacked, rms_norm, slice_layer, tok_einsum)
+                     constrain_act, dtype_of, layer_slices,
+                     model_device, remat_block, rms_norm, slice_layer,
+                     tok_einsum)
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward, moe_forward_ref
 
@@ -126,7 +128,12 @@ def _block_decode(cfg: ArchConfig, mesh):
 # ----------------------------------------------------------------------
 
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    """The token rows of the table, through ``F.embedding``: its backward
+    sums the rows of repeated tokens in a fixed order, where PyTorch lists
+    indexing's backward on the CPU (an ``index_put_`` with accumulation)
+    as nondeterministic; the training checks compare grads bitwise."""
+    return F.embedding(tokens.long(), params["embed"]).to(
+        dtype_of(cfg.compute_dtype))
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
@@ -143,8 +150,9 @@ def _run_layers(params, cfg: ArchConfig, x, positions, mesh):
     x = constrain_act(x, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = _block_train(cfg, mesh)
+    dense = remat_block(block, "full" if cfg.remat != "none" else "none")
     for i in range(cfg.first_k_dense):
-        (x, positions, aux), _ = block(slice_layer(params, f"dense{i}"),
+        (x, positions, aux), _ = dense(slice_layer(params, f"dense{i}"),
                                        (x, positions, aux))
     stacked = slice_layer(params, "layers")
     (x, positions, aux), _ = ScanBlock.run(
@@ -159,8 +167,8 @@ def _logits(params, cfg: ArchConfig, x):
 
 
 def lm_loss(params, cfg: ArchConfig, batch, mesh=None):
-    """Next-token CE, masked to text positions. Returns (loss, metrics).
-    Forward only."""
+    """Next-token CE, masked to text positions. Returns (loss, metrics);
+    differentiable, with each stacked layer under ``cfg.remat``."""
     x, positions = _embed_inputs(params, cfg, batch)
     x, aux = _run_layers(params, cfg, x, positions, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -219,9 +227,9 @@ def lm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
                           tuple(c[i] for c in cache), cl)
         new_slices.append(nc)
     stacked = slice_layer(params, "layers")
-    for j in range(n_stacked(stacked)):
+    for j, layer in enumerate(layer_slices(stacked)):
         li = cfg.first_k_dense + j
-        x_pos, nc = block(layer_at(stacked, j), x_pos,
+        x_pos, nc = block(layer, x_pos,
                           tuple(c[li] for c in cache), cl)
         new_slices.append(nc)
     x = rms_norm(x_pos[0], params["final_norm"], cfg.norm_eps)

@@ -1,0 +1,8 @@
+"""Training substrate of the port (counterpart of ``repro.train``): the
+single-device loop and the DKPCA activation probe."""
+
+from .loop import StragglerMonitor, TrainConfig, build_train_step, train
+from .probes import activation_probe
+
+__all__ = ["StragglerMonitor", "TrainConfig", "activation_probe",
+           "build_train_step", "train"]

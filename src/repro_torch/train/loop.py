@@ -1,0 +1,194 @@
+"""Training loop of the port (counterpart of ``repro.train.loop``): the
+step with its NaN guard, checkpoint and restart, straggler monitoring, and
+the DKPCA activation probe as an optional hook.
+
+One device, no mesh: a ``mesh`` raises ``NotImplementedError`` (the data-
+and tensor-parallel half is ROADMAP queue A). The JAX step is jitted and
+donates its state; here ``step_fn`` updates the state's tensors in place
+(``optim.adamw_update_``), which is what lets llama3.2-3b train on one
+80 GB card, and returns the same dict.
+
+Checkpoints hold the state under the JAX package's leaf names
+(``params::<key>``, ``m::<key>``, ``v::<key>``, ``step::step``) and the data
+stream's state in the metadata, so a checkpoint either loop wrote resumes
+in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from ..device import DeviceLike
+from ..optim import AdamWConfig, adamw_init, global_norm
+from ..optim.adamw import adamw_update_, learning_rate
+
+log = logging.getLogger("repro_torch.train")
+
+MESH_NOT_PORTED = ("a mesh: data- and tensor-parallel training is not "
+                   "ported yet (ROADMAP queue A: distributed/sharding.py, "
+                   "launch/mesh.make_mesh, build_train_step's mesh branch)")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps: int = 100
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    log_every: int = 10
+    probe_every: int = 0          # 0 = off; DKPCA activation probe period
+    straggler_factor: float = 3.0
+    seed: int = 0
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+
+
+def loss_and_grads(model, params, batch):
+    """(total loss, metrics, grads by key) of ``model.loss``; a parameter
+    the loss does not reach gets zero grads, as ``jax.grad`` gives."""
+    leaves = list(params.values())
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        total, metrics = model.loss(params, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(params.items(), grads)}
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def build_train_step(model, opt_cfg: AdamWConfig, mesh=None, rules=None):
+    """Returns (init_fn, step_fn).
+
+    ``init_fn(key)``: key a seed (a generator on the model's device) or a
+    ``torch.Generator``; returns (state, axes). ``step_fn(state, batch)``
+    updates ``state`` in place and returns (state, metrics): when the loss
+    or the grad norm is not finite, params, m and v stay as they were,
+    ``step`` still advances and ``metrics["skipped"]`` is 1 (the JAX
+    package's in-graph guard)."""
+    _no_mesh(mesh)
+
+    def init_fn(key):
+        params, axes = model.init(key)
+        opt = adamw_init(params)
+        return {"params": params, "m": opt["m"], "v": opt["v"],
+                "step": opt["step"]}, axes
+
+    def step_fn(state, batch):
+        total, metrics, grads = loss_and_grads(model, state["params"], batch)
+        gnorm = global_norm(grads)
+        ok = bool(torch.isfinite(total) & torch.isfinite(gnorm))
+        if ok:
+            opt_metrics = adamw_update_(opt_cfg, state["params"], grads,
+                                        state, gnorm=gnorm)
+        else:
+            state["step"] = state["step"] + 1
+            opt_metrics = {"grad_norm": gnorm,
+                           "lr": learning_rate(opt_cfg, state["step"])}
+        del grads
+        metrics = dict(metrics, **opt_metrics,
+                       skipped=torch.tensor(not ok))
+        return state, {k: v.to(torch.float32) if torch.is_tensor(v) else v
+                       for k, v in metrics.items()}
+
+    return init_fn, step_fn
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Flags steps slower than factor x running median (at 1000-node scale
+    this signal feeds the scheduler; here it logs and counts)."""
+    factor: float = 3.0
+    times: list = dataclasses.field(default_factory=list)
+    flagged: int = 0
+
+    def record(self, dt: float) -> bool:
+        self.times.append(dt)
+        if len(self.times) < 5:
+            return False
+        med = float(np.median(self.times[-50:]))
+        if dt > self.factor * med:
+            self.flagged += 1
+            log.warning("straggler step: %.3fs vs median %.3fs", dt, med)
+            return True
+        return False
+
+
+def train(model, opt_cfg: AdamWConfig, data_iter, tcfg: TrainConfig,
+          mesh=None, rules=None, probe_fn: Optional[Callable] = None):
+    """Run the loop; returns (final state, history dict: the JAX loop's
+    keys, and ``skipped``, each step's NaN-guard flag). Resumes from the
+    newest checkpoint in ``tcfg.ckpt_dir``, the data stream's state
+    included. A step's time is taken when its loss reaches the host."""
+    init_fn, step_fn = build_train_step(model, opt_cfg, mesh, rules)
+    state, axes = init_fn(tcfg.seed)
+    start_step = 0
+    if tcfg.ckpt_dir and latest_step(tcfg.ckpt_dir) is not None:
+        flat, meta, start_step = restore_checkpoint(tcfg.ckpt_dir)
+        state = _unflatten_state(flat, device=model.device)
+        if "data_state" in meta and hasattr(data_iter, "restore"):
+            data_iter.restore(meta["data_state"])
+        log.info("restored checkpoint at step %d", start_step)
+
+    monitor = StragglerMonitor(tcfg.straggler_factor)
+    history = {"loss": [], "step_time": [], "probe": [], "skipped": []}
+    for step in range(start_step, tcfg.steps):
+        batch = data_iter.next_batch()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        monitor.record(dt)
+        history["loss"].append(loss)
+        history["step_time"].append(dt)
+        history["skipped"].append(bool(metrics["skipped"]))
+        if tcfg.log_every and step % tcfg.log_every == 0:
+            log.info("step %d loss %.4f (%.2fs)", step, loss, dt)
+        if probe_fn and tcfg.probe_every and step % tcfg.probe_every == 0:
+            history["probe"].append((step, probe_fn(state, batch)))
+        if (tcfg.ckpt_dir and tcfg.ckpt_every
+                and (step + 1) % tcfg.ckpt_every == 0):
+            save_checkpoint(tcfg.ckpt_dir, step + 1, _flatten_state(state),
+                            metadata={"data_state": getattr(
+                                data_iter, "state", lambda: {})()})
+    history["straggler_flags"] = monitor.flagged
+    return state, history
+
+
+def _flatten_state(state):
+    out = {}
+    for group in ("params", "m", "v"):
+        for k, v in state[group].items():
+            out[f"{group}::{k}"] = v
+    out["step::step"] = state["step"]
+    return out
+
+
+def _unflatten_state(flat, device: DeviceLike = "cpu"):
+    """The state of a flat checkpoint tree (numpy arrays, or tensors for
+    bf16 leaves), as tensors on ``device`` in the dtypes it was saved in."""
+    state = {"params": {}, "m": {}, "v": {}}
+    for k, v in flat.items():
+        t = torch.as_tensor(v).to(device)
+        group, key = k.split("::", 1)
+        if group == "step":
+            state["step"] = t.to(torch.int32)
+        else:
+            state[group][key] = t
+    return state
+
+
+__all__ = ["MESH_NOT_PORTED", "StragglerMonitor", "TrainConfig",
+           "build_train_step", "loss_and_grads", "train"]

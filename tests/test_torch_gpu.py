@@ -1203,3 +1203,170 @@ def test_lm_decode_on_card_matches_cpu(cuda, name):
                 assert (want[rows, wt[rows]] - want[rows, gt[rows]]
                         <= 2e-2).all()
                 break
+
+
+# ---- the LM training path on the card -----------------------------------
+
+def _opt_tensors(dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (3, 40, 50), "m2": (60, 7), "b": (50,)}
+    params = {k: torch.as_tensor(rng.normal(size=s).astype(np.float32))
+              .to(dtype) for k, s in shapes.items()}
+    grads = [{k: torch.as_tensor((rng.normal(size=s) * 3).astype(np.float32))
+              .to(dtype) for k, s in shapes.items()} for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_adamw_on_card_matches_cpu(cuda, dtype, in_place):
+    """AdamW (functional, or the loop's in-place form) on the card against
+    the CPU on the same tensors: params, moments and the grad norm at
+    1e-6 * max(1, |x|)."""
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   cosine_with_warmup)
+    from repro_torch.optim.adamw import adamw_update_
+    cfg = AdamWConfig(schedule=cosine_with_warmup(1, 5))
+    params, grads = _opt_tensors(dtype, cuda)
+    sides = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        st = adamw_init(p)
+        for g in grads:
+            g = {k: v.to(dev) for k, v in g.items()}
+            if in_place:
+                met = adamw_update_(cfg, p, g, st)
+            else:
+                p, st, met = adamw_update(cfg, p, g, st)
+        sides[str(dev)] = (p, st, met)
+    (pc, sc, mc), (pg, sg, mg) = sides["cpu"], sides[str(cuda)]
+
+    def near(a, b):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            1.0, float(b.abs().max()))
+    for k in pc:
+        near(pg[k], pc[k])
+        near(sg["m"][k], sc["m"][k])
+        near(sg["v"][k], sc["v"][k])
+    near(mg["grad_norm"], mc["grad_norm"])
+
+
+def _fp32_smoke(name="llama3.2-3b"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name, smoke=True),
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """The fp32 llama3.2-3b-smoke, 8 AdamW steps from the same weights on
+    the card and the CPU: losses within 1e-4 relative, the final params
+    within 1e-4 max|p| of each tensor."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    cfg = _fp32_smoke()
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, 8))
+    weights, _ = build_model(cfg, device="cpu").init(0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, step_fn = build_train_step(build_model(cfg, device=dev), opt)
+        p = {k: v.clone().to(dev) for k, v in weights.items()}
+        state = dict(params=p, **adamw_init(p))
+        data = TokenStream(cfg.vocab, 4, 32, seed=0, device=dev)
+        losses = [float(step_fn(state, data.next_batch())[1]["loss"])
+                  for _ in range(8)]
+        runs[dev] = (losses, state["params"])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][k].cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), k
+
+
+def test_resume_on_card_is_bitwise(cuda, tmp_path):
+    """8 straight steps against 4, a checkpoint, a restore and 4 more
+    (bf16 smoke config): the same losses and state, bitwise; the data
+    stream's state comes back from the metadata."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import TrainConfig, train
+    cfg = get_config("llama3.2-3b", smoke=True)
+    model = build_model(cfg, device="cuda")
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, 8))
+    tc = lambda steps, d: TrainConfig(steps=steps, ckpt_dir=str(d),
+                                      ckpt_every=4, log_every=0)
+    stream = lambda: TokenStream(cfg.vocab, 4, 32, seed=0, device="cuda")
+    a, ha = train(model, opt, stream(), tc(8, tmp_path / "a"))
+    train(model, opt, stream(), tc(4, tmp_path / "b"))
+    data = stream()
+    b, hb = train(model, opt, data, tc(8, tmp_path / "b"))
+    assert ha["loss"][4:] == hb["loss"] and data.step == 8
+    assert int(a["step"]) == int(b["step"]) == 8
+    for g in ("params", "m", "v"):
+        for k in a[g]:
+            assert torch.equal(a[g][k], b[g][k]), (g, k)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "mixtral-8x22b",
+                                  "deepseek-v2-236b"])
+def test_remat_modes_on_card_are_bitwise(cuda, name):
+    import dataclasses
+    from repro_torch.configs import concrete_train_batch, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import loss_and_grads
+    base = get_config(name, smoke=True)
+    params = None
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        model = build_model(dataclasses.replace(base, remat=remat),
+                            device="cuda")
+        if params is None:
+            params, _ = model.init(0)
+        batch = concrete_train_batch(model.cfg, 2, 32, device="cuda")
+        grads[remat] = loss_and_grads(model, params, batch)[2]
+    for remat in ("full", "dots"):
+        for k, g in grads["none"].items():
+            assert torch.equal(grads[remat][k], g), (remat, k)
+
+
+def test_probe_on_card_matches_its_cpu_run(cuda):
+    """The activation probe launches gram and admm_step on the card; the
+    same build_setup + run_admm on the CPU from the card's alpha0 gives
+    alpha within 2e-4 max|alpha|, and the probe's outputs are the card
+    run's."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core import (KernelSpec, RhoSchedule, build_setup,
+                                  initial_alpha, ring, run_admm)
+    from repro_torch.models import build_model
+    from repro_torch.train import activation_probe
+    from repro_torch.train.probes import pooled_activations
+    cfg = ArchConfig(name="t", family="dense", n_layers=2, d_model=48,
+                     n_heads=2, n_kv_heads=1, d_ff=96, vocab=256,
+                     head_dim=24, tie_embeddings=True, remat="none",
+                     param_dtype="float32", compute_dtype="float32")
+    params, _ = build_model(cfg, device="cuda").init(0)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, size=(96, 16), dtype=np.int32), device=cuda)
+    g0, a0 = gram_tiles.launches, admm_local_update.launches
+    out = activation_probe(params, {"tokens": toks}, n_iters=8)
+    assert gram_tiles.launches > g0 and admm_local_update.launches - a0 == 8
+    acts = pooled_activations(params, toks).reshape(3, 32, -1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        setup = build_setup(acts.to(dev), ring(3, hops=1),
+                            KernelSpec(kind="rbf"), device=dev)
+        if dev == "cuda":
+            alpha0 = initial_alpha(setup, "local")
+        runs[dev] = run_admm(setup, n_iters=8, rho2=RhoSchedule(),
+                             alpha0=alpha0.to(dev))
+    card = runs["cuda"]
+    assert out["consensus_residual"] == float(card.primal_residual[-1])
+    scale = float(card.alpha.abs().max())
+    assert float((runs["cpu"].alpha - card.alpha.cpu()).abs().max()) \
+        <= 2e-4 * scale
