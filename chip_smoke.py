@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase dkpca    # build, fit and ring fit alone
+    python3 chip_smoke.py --phase lm_train_dist   # build, four-card meshes
 
 Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
 
@@ -11,10 +12,11 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            and the count of wgmma (HGMMA) instructions per kernel function
            (gram's and project's must hold some);
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card at the main path's shapes: max abs error, kernel / plain /
-           library times per call (CUDA events over back-to-back calls,
-           host launch cost included; for gram and center, every launch of
-           the op), the kernels' own device time (a torch.profiler trace),
+           card at the main path's shapes (the fit's, the probe's, and the
+           probe ring's per rank and on one card): max abs error, kernel
+           / plain / library times per call (CUDA events over back-to-back
+           calls, host launch cost included; for gram and center, every
+           launch of the op), the kernels' own device time (a profiler trace),
            and the least time the card could take (bytes over 3.35 TB/s, or
            operations over 67 TFLOP/s fp32, or for gram and project 3 x TF32
            products over 495 TFLOP/s, a self-Gram counting n(n+1)/2 pairs);
@@ -129,12 +131,36 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            deepseek smoke configs (loss and grad norm within 2e-2), 8
            straight steps against 4 + checkpoint + resume + 4 (bitwise),
            save_checkpoint_async (its snapshot, found by latest_step), and
-           remat "none", "full" and "dots" giving the same grads (bitwise).
+           remat "none", "full" and "dots" giving the same grads (bitwise);
+  lm_train_mesh  lm_train's run again through train() over a (1, 1) device
+           mesh on a NCCL group of world 1: the losses and every leaf's
+           checksums (float64 sum, sum of bit patterns) bitwise lm_train's,
+           no collective issued, peak and step times beside lm_train's;
+           the probe over the mesh is skipped (J = 1 data rank < 3);
+  lm_train_dist  on a host with 4 cards (else it records that it did not
+           run, and why): one-card references, then 4 spawned NCCL ranks:
+           llama3.2-3b at full width, 3 steps of lm_train's batches on
+           (4, 1), (2, 2) and (1, 4) meshes (step 1's loss within 1e-5 /
+           5e-3 / 5e-3 relative of one card, its grad norm within 1e-2,
+           every loss finite and the same on every rank, per-card peak at
+           (4, 1) under 20 GB); mixtral-8x22b and deepseek-v2-236b at full
+           width cut to 2 layers on (1, 4) and (2, 2) (step 1's loss within
+           5e-3 of the one-card forward); the probe's ring branch on
+           (4, 1) (gram launched and admm_step once an iteration on every
+           rank, counted from zero just before it; alpha within 1e-5
+           max|alpha| of the world-1 ring of the same x_nodes, the
+           all-reduce's order of the centring mean, bits recorded); the
+           fp32 smoke model's params after 3 steps within 3e-5 max|p| of
+           one card on each mesh; a (2, 2) checkpoint restored at (4, 1) and on one card
+           (bitwise); the launcher under torchrun on 2 x 2 (rc 0, one
+           last line, on rank 0).
 
 Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
 faults; dkpca; serve_kpca, counted in the launcher's own process, which
 starts at zero; autotune; lm_serve, which must launch none of the four
-kernels; lm_train, whose probe must launch gram and admm_step) is driven
+kernels; lm_train, whose probe must launch gram and admm_step; lm_train_mesh, whose
+skipped probe launches none; lm_train_dist's ranks count their own) is
+driven
 with every kernel's launch count zeroed just before it and read just
 after; a kernel the path must run and never
 launched fails the run (the kernels, breakdown and serve_stream phases
@@ -155,6 +181,7 @@ script. It imports nothing of JAX or of the JAX package.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -214,6 +241,32 @@ TRAIN_SMOKE_STEPS = 8
 TRAIN_SMOKE_TOL = 1e-4         # fp32 smoke, card vs CPU: losses (relative),
                                # final params (x max|p| of each tensor)
 TRAIN_MOE = ("mixtral-8x22b", "deepseek-v2-236b")   # bf16, one step, 2e-2
+# lm_train_dist (four cards): the meshes, llama3.2-3b's steps on each, the
+# gates on step 1's loss (relative to one card: the (4, 1) step only
+# reorders the mean, the others split contractions) and on the grad norm
+DIST_RANKS = 4
+DIST_MESHES = ((4, 1), (2, 2), (1, 4))
+DIST_STEPS = 3
+DIST_LOSS_TOL = {(4, 1): 1e-5, (2, 2): 5e-3, (1, 4): 5e-3}
+DIST_GNORM_TOL = 1e-2          # step 1's grad norm, relative
+DIST_PEAK_GB_MAX = 20.0        # per card at (4, 1): half of lm_train's peak
+# the probe's alpha against the world-1 ring, x max|alpha|: the all-reduce
+# adds the centring mean's node terms in its own order
+# (scripts/ring_batch_bits.py)
+DIST_PROBE_TOL = 1e-5
+# the fp32 smoke's params, x max|p| of each tensor: Adam amplifies the
+# rounding of gradients that cancel to about its eps
+# (scripts/dist_smoke_gap.py)
+DIST_SMOKE_TOL = 3e-5
+# the MoE configs at full width cut to 2 layers, on (1, 4) and (2, 2); a
+# batch small enough that every shard's dispatch is drop-free
+DIST_MOE = (("mixtral-8x22b", 2), ("deepseek-v2-236b", 2))
+DIST_MOE_MESHES = ((1, 4), (2, 2))
+DIST_MOE_BATCH, DIST_MOE_SEQ, DIST_MOE_TOL = 2, 16, 5e-3
+DIST_RANK_TIMEOUT_S = 900
+DIST_LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--mesh", "2x2", "--steps", "3",
+                    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ))
+DIST_LAUNCH_TIMEOUT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -508,11 +561,12 @@ def center_record(k, label):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def admm_record(setup, label):
+def admm_record(setup, label, nodes=None):
     """The fused local update on the operands the solver hands it at
     iteration 6 of the fit (the eigenvectors, node Grams and inverse
     denominators of the setup, the live duals and z projections of five
-    iterations, the schedule's rho)."""
+    iterations, the schedule's rho); ``nodes``: only the first so many
+    nodes' operands (a rank's share of a ring)."""
     import torch
     from repro_torch.core import dense_parts, init_state, initial_alpha
     from repro_torch.core.rho import RhoSchedule
@@ -525,12 +579,14 @@ def admm_record(setup, label):
     for t in range(5):
         state, _ = admm_step(ops, comm, state,
                              slot_rho(ops.mask, 100.0, RhoSchedule().at(t)))
-    j, n, s = ops.k.shape[0], ops.k.shape[1], ops.mask.shape[1]
     rho = slot_rho(ops.mask, 100.0, RhoSchedule().at(5))
     inv = inverse_denominators(ops.lam, torch.sum(rho, dim=1))
     ins = (ops.vec, inv[..., None].contiguous(), ops.k,
            state.b * ops.mask[:, None, :], state.g,
            rho[:, None, :].contiguous())
+    if nodes is not None:
+        ins = tuple(t[:nodes].contiguous() for t in ins)
+    (j, n, _), s = ins[2].shape, ins[5].shape[2]
 
     def run():
         return admm_local_update(*ins)
@@ -599,6 +655,23 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
             [[0, 2, 1], [1, 0, 2], [2, 1, 0]], device=dev)]
             .reshape(3, 3 * PROBE_NODE, 3072).contiguous(), g_probe,
             "3x96x96x3072 probe")]
+    # the probe's ring branch (lm_train_dist): J = 4 nodes of n = 24 rows,
+    # hops 1; a rank's sweep cross-Gram and slot Grams (L = 1 node), and
+    # the world-1 ring's on one card (L = 4)
+    rn = min(PROBE_NODE, PROBE_BATCH // DIST_RANKS)
+    ring_nodes = acts[: DIST_RANKS * rn].reshape(DIST_RANKS, rn, 3072)
+    rids, _, _ = ring(DIST_RANKS, 1).neighbor_array()
+    ring_slots = ring_nodes[torch.as_tensor(
+        [[j, *rids[j]] for j in range(DIST_RANKS)], device=dev)].reshape(
+        DIST_RANKS, 3 * rn, 3072)
+    ring_next = torch.roll(ring_nodes, -1, dims=0)
+    for nl in (1, DIST_RANKS):
+        records["gram"] += [
+            gram_record(spec, ring_nodes[:nl].contiguous(), g_probe,
+                        f"{nl}x{rn}x{rn}x3072 probe ring sweep",
+                        y=ring_next[:nl].contiguous()),
+            gram_record(spec, ring_slots[:nl].contiguous(), g_probe,
+                        f"{nl}x{3 * rn}x{3 * rn}x3072 probe ring slots")]
 
     # project: the served models' real coefficients and centering terms (a
     # central fit on the pooled data, and its 500-landmark compression)
@@ -640,10 +713,16 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     # the fused update on the fit's own setup
     setup = build_setup(nodes, ring(20, hops=2), spec, center="global",
                         gamma=g, device=dev)
+    ring_setup = build_setup(ring_nodes, ring(DIST_RANKS, hops=1), spec,
+                             device=dev)
     records["admm_step"] = [admm_record(setup, "J20xN100xS5"),
                             admm_record(build_setup(
                                 probe_nodes, ring(3, hops=1), spec,
-                                device=dev), "J3xN32xS3 probe")]
+                                device=dev), "J3xN32xS3 probe"),
+                            admm_record(ring_setup,
+                                        f"J{DIST_RANKS}xN{rn}xS3 probe ring"),
+                            admm_record(ring_setup, f"J1xN{rn}xS3 probe ring",
+                                        nodes=1)]
     emit("kernels", tolerance=TOLERANCE, records=records)
     for name, recs in records.items():
         worst = max(r["max_scaled_err"] for r in recs)
@@ -2271,6 +2350,11 @@ def phase_lm_train(dev, spec) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # what lm_train_mesh is held to, before anything else moves the state
+    ref = dict(losses=hist["loss"], sums=leaf_checksums(state), peak=peak,
+               first=hist["step_time"][0],
+               warm=sorted(hist["step_time"][1:])[
+                   len(hist["step_time"][1:]) // 2])
     run_probe = lambda: activation_probe(state["params"], probe_batch,
                                          n_iters=PROBE_ITERS,
                                          samples_per_node=PROBE_NODE)
@@ -2351,7 +2435,512 @@ def phase_lm_train(dev, spec) -> dict:
                     features=cfg.d_model, iterations=PROBE_ITERS),
          smoke=smoke, launches=launches,
          phase_s=time.perf_counter() - t_phase)
+    return launches, ref
+
+
+def leaf_checksums(state) -> dict:
+    """Per leaf of params, m and v: (the float64 sum of its values, the
+    int64 sum of its bit patterns), a slice of 2**26 values at a time."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    out = {}
+    for group in ("params", "m", "v"):
+        for k, t in state[group].items():
+            flat = t.reshape(-1)
+            out[f"{group}::{k}"] = [
+                sum(float(r.double().sum()) for r in flat.split(1 << 26)),
+                sum(int(r.view(ints[t.dtype]).sum(dtype=torch.int64))
+                    for r in flat.split(1 << 26))]
+    return out
+
+
+def mesh_of(shape, store: str, rank: int = 0, world: int = 1):
+    """A ("data", "model") mesh of this process on card ``rank``."""
+    from repro_torch.launch import make_mesh
+    return make_mesh(shape, ("data", "model"), device="cuda", rank=rank,
+                     world_size=world, local_rank=rank,
+                     init_method=f"file://{store}")
+
+
+def phase_lm_train_mesh(dev, ref) -> dict:
+    """lm_train again through train(mesh=(1, 1) mesh, rules=default_rules)
+    on a NCCL group of world 1: at world 1 every collective is the
+    identity and every shard the whole leaf, so the losses and every
+    leaf's checksums must equal lm_train's bit for bit; peak memory and
+    step times beside lm_train's; the probe over the mesh is skipped (J = 1
+    data rank < 3, as in the JAX package) and launches nothing."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import default_rules
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import TrainConfig, activation_probe, train
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, TRAIN_STEPS))
+    data = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                       device=str(dev))
+    probe_batch = TokenStream(cfg.vocab, PROBE_BATCH, PROBE_SEQ, seed=1,
+                              device=str(dev)).next_batch()
+    rules = default_rules(False)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = mesh_of((1, 1), f"{tmp}/store")
+        try:
+            model = build_model(cfg, mesh=mesh)
+            zero_launches()
+            t0 = time.perf_counter()
+            state, hist = train(model, opt, data,
+                                TrainConfig(steps=TRAIN_STEPS, log_every=0),
+                                mesh=mesh, rules=rules)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            sums = leaf_checksums(state)
+            probe = activation_probe(state["params"], probe_batch, mesh=mesh,
+                                     shards=model.shards(),
+                                     n_iters=PROBE_ITERS,
+                                     samples_per_node=PROBE_NODE)
+            launches = read_launches("lm_train_mesh", ())
+            collectives = dict(mesh.counts)
+        finally:
+            dist.destroy_process_group()
+    del state
+    torch.cuda.empty_cache()
+    losses_same = hist["loss"] == ref["losses"]
+    differ = sorted(k for k, v in sums.items() if ref["sums"].get(k) != v)
+    check(losses_same and not differ and len(sums) == len(ref["sums"]),
+          f"lm_train_mesh: the (1, 1) mesh is not lm_train's run bit for "
+          f"bit: losses {hist['loss']} vs {ref['losses']}, leaves that "
+          f"differ {differ[:8]}")
+    check(probe == {"skipped": True},
+          f"lm_train_mesh: the probe over a one-rank mesh ran: {probe}")
+    check(not collectives, f"lm_train_mesh: collectives issued on a world "
+                           f"of 1: {collectives}")
+    steps = hist["step_time"]
+    emit("lm_train_mesh", arch=TRAIN_ARCH, mesh=[1, 1], layers=cfg.n_layers,
+         d_model=cfg.d_model, steps=TRAIN_STEPS, losses=hist["loss"],
+         lm_train_losses=ref["losses"], losses_bitwise=losses_same,
+         leaves=len(sums), leaves_differing=differ,
+         checksums_bitwise=not differ, train_s=train_s,
+         first_step_s=steps[0],
+         warm_step_s_median=sorted(steps[1:])[len(steps[1:]) // 2],
+         lm_train_first_step_s=ref["first"],
+         lm_train_warm_step_s_median=ref["warm"], peak_alloc_gb=peak,
+         lm_train_peak_alloc_gb=ref["peak"], probe=probe,
+         collectives=collectives, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def fp32(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def smoke_steps(model, dev, mesh=None):
+    """DIST_STEPS steps of the fp32 llama3.2-3b-smoke from seed 0 (the
+    training checks' optimizer and stream): (state, build_train_step's
+    model layout)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, TRAIN_SMOKE_STEPS))
+    init_fn, step_fn = build_train_step(model, opt, mesh)
+    state, _ = init_fn(0)
+    data = TokenStream(model.cfg.vocab, TRAIN_BATCH, 32, seed=0,
+                       device=str(dev))
+    for _ in range(DIST_STEPS):
+        step_fn(state, data.next_batch())
+    return state
+
+
+def llama_steps(model, dev, mesh=None) -> tuple:
+    """DIST_STEPS steps of full-width llama3.2-3b from lm_train's seed,
+    optimizer and batches: (state, per-step loss / grad norm / seconds,
+    peak allocation in GB above what was held before)."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, TRAIN_STEPS))
+    init_fn, step_fn = build_train_step(model, opt, mesh)
+    state, _ = init_fn(0)
+    data = TokenStream(model.cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                       device=str(dev))
+    steps = []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        _, met = step_fn(state, data.next_batch())
+        loss = float(met["loss"])
+        steps.append(dict(loss=loss, grad_norm=float(met["grad_norm"]),
+                          s=time.perf_counter() - t0))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return state, steps, peak
+
+
+def moe_loss(cfg, dev, mesh=None) -> dict:
+    """Step 1 of a cut MoE config from seed 0: over a mesh one training
+    step's loss, on one card the forward loss alone (its training state
+    does not fit beside the activations); and the peak allocation."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    batch = TokenStream(cfg.vocab, DIST_MOE_BATCH, DIST_MOE_SEQ, seed=0,
+                        device=str(dev)).next_batch()
+    model = build_model(cfg, mesh=mesh, device=dev)
+    if mesh is None:
+        params, _ = model.init(0)
+        with torch.no_grad():
+            loss = float(model.loss(params, batch)[1]["loss"])
+        del params
+    else:
+        init_fn, step_fn = build_train_step(model, AdamWConfig(), mesh)
+        state, _ = init_fn(0)
+        loss = float(step_fn(state, batch)[1]["loss"])
+        del state
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.empty_cache()
+    return dict(loss=loss, peak_alloc_gb=peak)
+
+
+def moe_cfgs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return {arch: dataclasses.replace(get_config(arch), n_layers=layers)
+            for arch, layers in DIST_MOE}
+
+
+def dist_reference(dev) -> dict:
+    """The one-card runs lm_train_dist is held to: llama3.2-3b's steps, the
+    cut MoE configs' forward losses, the fp32 smoke model's params."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    state, steps, peak = llama_steps(build_model(get_config(TRAIN_ARCH),
+                                                 device=dev), dev)
+    del state
+    ref = dict(llama=dict(steps=steps, peak_alloc_gb=peak),
+               moe={arch: moe_loss(cfg, dev)
+                    for arch, cfg in moe_cfgs().items()})
+    state = smoke_steps(build_model(fp32(get_config(TRAIN_ARCH, smoke=True)),
+                                    device=dev), dev)
+    ref["smoke"] = {k: v.cpu() for k, v in state["params"].items()}
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of lm_train_dist (a spawned process on card ``rank``): the
+    three meshes over the same world, then on each llama3.2-3b at full
+    width (DIST_STEPS steps, per-step loss and grad norm, peak memory), at
+    (4, 1) the probe's ring branch (its launches, its x_nodes and alpha),
+    the cut MoE configs on (1, 4) and (2, 2), the fp32 smoke model's params
+    after DIST_STEPS steps, and at (2, 2) a sharded checkpoint restored at
+    (4, 1); writes rank<r>.json (and rank 0 the tensors)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import KernelSpec, dkpca_distributed
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed.collectives import all_gather, gather_full
+    from repro_torch.models import build_model
+    from repro_torch.models.common import local_batch
+    from repro_torch.train import activation_probe
+    from repro_torch.train.loop import (_flatten_state, _unflatten_state,
+                                        state_shardings)
+    from repro_torch.train.probes import pooled_activations
+    meshes = {shape: mesh_of(shape, store, rank, world)
+              for shape in DIST_MESHES}
+    dev = meshes[DIST_MESHES[0]].device
+    out = Path(out)
+    res = dict(card=str(dev), llama={}, moe={}, smoke={})
+    full = lambda tree, shards: {k: gather_full(v, shards.specs[k],
+                                                shards.mesh).cpu()
+                                 for k, v in tree.items()}
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        for shape, mesh in meshes.items():
+            mesh.counts.clear()
+            model = build_model(cfg, mesh=mesh)
+            state, steps, peak = llama_steps(model, dev, mesh)
+            entry = dict(steps=steps, peak_alloc_gb=peak,
+                         params_m_v_gb=sum(t.numel() * t.element_size()
+                                      for g in ("params", "m", "v")
+                                      for t in state[g].values()) / 1e9,
+                         collectives=dict(mesh.counts))
+            if shape == (4, 1):
+                batch = TokenStream(cfg.vocab, PROBE_BATCH, PROBE_SEQ,
+                                    seed=1, device=str(dev)).next_batch()
+                torch.cuda.synchronize()
+                zero_launches()
+                probe = activation_probe(state["params"], batch, mesh=mesh,
+                                         shards=model.shards(),
+                                         n_iters=PROBE_ITERS)
+                torch.cuda.synchronize()
+                counts = read_launches("lm_train_dist probe",
+                                       ("gram", "admm_step"))
+                entry["probe"] = dict(out=probe, gram=counts["gram"],
+                                      admm_step=counts["admm_step"])
+                # its x_nodes and alpha: the probe's own steps again
+                rows, _ = local_batch({"tokens": batch["tokens"]}, mesh)
+                acts = all_gather(pooled_activations(
+                    state["params"], rows["tokens"], model.shards()), 0,
+                    mesh, ("data",))
+                n = min(PROBE_NODE, PROBE_BATCH // world)
+                x_nodes = acts[: world * n].reshape(world, n, -1)
+                ring = dkpca_distributed(x_nodes, group=mesh.group("data"),
+                                         hops=1, spec=KernelSpec(kind="rbf"),
+                                         n_iters=PROBE_ITERS, device=dev)
+                energy = torch.linalg.norm(ring.alpha, dim=1)
+                mean = torch.mean(energy)
+                again = dict(
+                    skipped=False,
+                    consensus_residual=float(ring.primal_residual[-1]),
+                    participation_mean=float(mean),
+                    participation_cv=float(torch.std(energy, unbiased=False)
+                                           / torch.clamp(mean, min=1e-9)))
+                entry["probe"]["rerun_equal"] = again == probe
+                if rank == 0:
+                    torch.save(dict(x_nodes=x_nodes.cpu(),
+                                    alpha=ring.alpha.cpu()),
+                               out / "probe.pt")
+            res["llama"][str(list(shape))] = entry
+            del state, model
+            torch.cuda.empty_cache()
+        for arch, mcfg in moe_cfgs().items():
+            for shape in DIST_MOE_MESHES:
+                res["moe"][f"{arch} {list(shape)}"] = moe_loss(
+                    mcfg, dev, meshes[shape])
+        scfg = fp32(get_config(TRAIN_ARCH, smoke=True))
+        for shape, mesh in meshes.items():
+            model = build_model(scfg, mesh=mesh)
+            state = smoke_steps(model, dev, mesh)
+            params = full(state["params"], model.shards())
+            if rank == 0:
+                torch.save(params, out / f"smoke_{shape[0]}x{shape[1]}.pt")
+            if shape == (2, 2):
+                sh = model.shards()
+                save_checkpoint(str(out / "ckpt22"), DIST_STEPS,
+                                _flatten_state(state),
+                                shardings=state_shardings(sh))
+                saved = {g: full(state[g], sh) for g in ("params", "m", "v")}
+                if rank == 0:
+                    torch.save(saved, out / "ckpt22_state.pt")
+                sh41 = build_model(scfg, mesh=meshes[(4, 1)]).shards()
+                flat, _, step = restore_checkpoint(
+                    str(out / "ckpt22"), shardings=state_shardings(sh41))
+                back = _unflatten_state(flat, device=dev)
+                # every rank joins every gather before any comparison
+                back = {g: full(back[g], sh41) for g in saved}
+                res["elastic_22_to_41_bitwise"] = step == DIST_STEPS and all(
+                    torch.equal(back[g][k], saved[g][k])
+                    for g in saved for k in saved[g])
+            del state, model
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_lm_train_dist(dev) -> dict:
+    """Data-, tensor- and expert-parallel training over min(4, cards) NCCL
+    ranks in spawned processes (``dist_rank``), held to one-card runs of
+    the same seeds and batches (``dist_reference``); then the probe's alpha
+    against the world-1 ring fit of the same x_nodes on one card
+    (bitwise), the (2, 2) checkpoint restored on one card (bitwise), and
+    the training launcher under torchrun on a 2 x 2 mesh. On a host with
+    fewer than 4 cards it does not run, and says why."""
+    import multiprocessing
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import KernelSpec, dkpca_distributed
+    from repro_torch.launch import make_process_group
+    from repro_torch.train.loop import _unflatten_state
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    if count < DIST_RANKS:
+        reason = (f"{count} card(s) on this host: the (4, 1), (2, 2) and "
+                  f"(1, 4) meshes need {DIST_RANKS} (run --phase "
+                  f"lm_train_dist on a four-card host)")
+        print(f"chip_smoke: lm_train_dist did not run: {reason}",
+              file=sys.stderr, flush=True)
+        emit("lm_train_dist", ran=False, reason=reason)
+        return dict(ran=False, reason=reason)
+    world = DIST_RANKS
+    t0 = time.perf_counter()
+    ref = dist_reference(dev)
+    ref_s = time.perf_counter() - t0
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        procs = [ctx.Process(target=dist_rank,
+                             args=(r, world, f"{tmp}/store", tmp))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        check(not hung and codes == [0] * world,
+              f"lm_train_dist: ranks {hung} hung, exit codes {codes}")
+        if hung or codes != [0] * world:
+            emit("lm_train_dist", ran=True, exit_codes=codes, hung=hung)
+            return dict(ran=True, exit_codes=codes, hung=hung)
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(world)]
+        probe_t = torch.load(f"{tmp}/probe.pt")
+        smoke = {shape: torch.load(f"{tmp}/smoke_{shape[0]}x{shape[1]}.pt")
+                 for shape in DIST_MESHES}
+        saved = torch.load(f"{tmp}/ckpt22_state.pt")
+        flat, _, _ = restore_checkpoint(f"{tmp}/ckpt22")
+        back = _unflatten_state(flat, device="cpu")
+        one_card_restore = all(torch.equal(back[g][k].cpu(), saved[g][k])
+                               for g in saved for k in saved[g])
+        # the probe's ring on one card: a NCCL group of world 1
+        group, _ = make_process_group(dev, rank=0, world_size=1, local_rank=0,
+                                      init_method=f"file://{tmp}/store1")
+        try:
+            one = dkpca_distributed(probe_t["x_nodes"].to(dev), group=group,
+                                    hops=1, spec=KernelSpec(kind="rbf"),
+                                    n_iters=PROBE_ITERS, device=dev)
+        finally:
+            dist.destroy_process_group()
+        alpha_bitwise = torch.equal(one.alpha.cpu(), probe_t["alpha"])
+        alpha_err = float((probe_t["alpha"] - one.alpha.cpu()).abs().max())
+        alpha_gate = DIST_PROBE_TOL * float(one.alpha.abs().max())
+    # the launcher under torchrun
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(world), "-m", "repro_torch.launch.train",
+             *DIST_LAUNCH_ARGS], env=env, capture_output=True, text=True,
+            timeout=DIST_LAUNCH_TIMEOUT_S, cwd=ROOT)
+        rc, stdout, stderr = run.returncode, run.stdout, run.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, stdout, stderr = "timeout", str(e.stdout), str(e.stderr)
+    launch_s = time.perf_counter() - t0
+    finals = [ln for ln in str(stdout).splitlines()
+              if ln.startswith("final loss: ")]
+    launcher = dict(args=list(DIST_LAUNCH_ARGS), rc=rc, seconds=launch_s,
+                    last_line=str(stdout).strip().splitlines()[-1:],
+                    final_lines=len(finals))
+    check(rc == 0 and len(finals) == 1
+          and str(stdout).strip().splitlines()[-1] == finals[0],
+          f"lm_train_dist: the launcher under torchrun: {launcher}, "
+          f"stderr {str(stderr)[-2000:]}")
+    # gates
+    r0 = ranks[0]
+    llama = {}
+    ref_steps = ref["llama"]["steps"]
+    for shape in DIST_MESHES:
+        key = str(list(shape))
+        got = r0["llama"][key]["steps"]
+        loss_gap = abs(got[0]["loss"] - ref_steps[0]["loss"]) / abs(
+            ref_steps[0]["loss"])
+        # the gates read step 1 (the same weights on both sides); later
+        # steps part as bf16 rounding moves each first Adam update
+        gn_gaps = [abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                   for g, w in zip(got, ref_steps)]
+        loss_gaps = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                     for g, w in zip(got, ref_steps)]
+        peaks = [r["llama"][key]["peak_alloc_gb"] for r in ranks]
+        same_on_ranks = all(r["llama"][key]["steps"][i]["loss"]
+                            == got[i]["loss"] for r in ranks
+                            for i in range(DIST_STEPS))
+        llama[key] = dict(
+            losses=[g["loss"] for g in got],
+            grad_norms=[g["grad_norm"] for g in got],
+            step_s=[g["s"] for g in got], step1_loss_rel_gap=loss_gap,
+            gate=DIST_LOSS_TOL[shape], step1_grad_norm_rel_gap=gn_gaps[0],
+            grad_norm_gate=DIST_GNORM_TOL, loss_rel_gap_by_step=loss_gaps,
+            grad_norm_rel_gap_by_step=gn_gaps,
+            peak_alloc_gb_by_rank=peaks,
+            params_m_v_gb_per_card=r0["llama"][key]["params_m_v_gb"],
+            collectives_rank0=r0["llama"][key]["collectives"],
+            loss_same_on_every_rank=same_on_ranks)
+        check(loss_gap <= DIST_LOSS_TOL[shape] and gn_gaps[0] <= DIST_GNORM_TOL
+              and same_on_ranks and all(math.isfinite(g["loss"])
+                                        for g in got),
+              f"lm_train_dist llama {key}: {llama[key]}")
+    peak41 = max(llama["[4, 1]"]["peak_alloc_gb_by_rank"])
+    check(peak41 < DIST_PEAK_GB_MAX, f"lm_train_dist: per-card peak at "
+                                     f"(4, 1) {peak41:.3f} GB >= "
+                                     f"{DIST_PEAK_GB_MAX} GB")
+    probe = [r["llama"]["[4, 1]"]["probe"] for r in ranks]
+    # the world-1 ring batches the 4 nodes into each operation, the
+    # four-card ring runs one a rank: every per-node operation is
+    # batch-invariant, the centring mean's all-reduce is not
+    # (scripts/ring_batch_bits.py), so the gate allows that order and the
+    # bits are recorded
+    check(all(not p["out"]["skipped"] and p["gram"] > 0
+              and p["admm_step"] == PROBE_ITERS and p["rerun_equal"]
+              for p in probe) and alpha_err <= alpha_gate,
+          f"lm_train_dist probe: {probe}, alpha {alpha_err:.3g} from the "
+          f"one-card ring (gate {alpha_gate:.3g})")
+    moe = {}
+    for key, got in r0["moe"].items():
+        arch = key.split()[0]
+        want = ref["moe"][arch]["loss"]
+        gap = abs(got["loss"] - want) / abs(want)
+        moe[key] = dict(loss=got["loss"], one_card_loss=want, rel_gap=gap,
+                        peak_alloc_gb_by_rank=[r["moe"][key]["peak_alloc_gb"]
+                                               for r in ranks])
+        check(math.isfinite(got["loss"]) and gap <= DIST_MOE_TOL,
+              f"lm_train_dist {key}: {moe[key]}")
+    smoke_gaps = {}
+    for shape in DIST_MESHES:
+        ok, worst = params_within(smoke[shape], ref["smoke"], DIST_SMOKE_TOL)
+        smoke_gaps[str(list(shape))] = worst
+        check(ok, f"lm_train_dist fp32 smoke {shape}: params {worst:.3g} "
+                  f"x max|p| from one card > {DIST_SMOKE_TOL}")
+    elastic = r0["elastic_22_to_41_bitwise"]
+    check(elastic and one_card_restore,
+          f"lm_train_dist: the (2, 2) checkpoint restored at (4, 1) "
+          f"{elastic}, on one card {one_card_restore}")
+    out = dict(ran=True, world=world, cards=[r["card"] for r in ranks],
+               one_card=ref["llama"], one_card_moe=ref["moe"], llama=llama,
+               peak_alloc_gb_4x1_max=peak41, probe_by_rank=probe,
+               probe_alpha_bitwise_one_card_ring=alpha_bitwise,
+               probe_alpha_max_abs_err_one_card_ring=alpha_err,
+               probe_alpha_gate=alpha_gate, moe=moe,
+               fp32_smoke_params_max_err_over_max_abs=smoke_gaps,
+               fp32_smoke_gate=DIST_SMOKE_TOL,
+               elastic_22_to_41_bitwise=elastic,
+               elastic_22_to_one_card_bitwise=one_card_restore,
+               launcher=launcher, reference_s=ref_s, ranks_s=ranks_s,
+               phase_s=time.perf_counter() - t_phase)
+    emit("lm_train_dist", **out)
+    return out
 
 
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
@@ -2374,11 +2963,14 @@ def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--phase", choices=("all", "dkpca"), default="all",
+    ap.add_argument("--phase", choices=("all", "dkpca", "lm_train_dist"),
+                    default="all",
                     help="dkpca: the build, the fit it is held to and the "
                          "ring fit alone (its multi-card part on a "
-                         "four-card host)")
-    only_dkpca = ap.parse_args(argv).phase == "dkpca"
+                         "four-card host); lm_train_dist: the build and "
+                         "the four-card training meshes alone")
+    phase = ap.parse_args(argv).phase
+    only_dkpca = phase == "dkpca"
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch sees no CUDA device")
@@ -2413,6 +3005,16 @@ def main(argv=None) -> int:
     for kernel in ("gram_mma_kernel", "project_partials_kernel"):
         check(any(kernel in f and n > 0 for f, n in hgmma.items()),
               f"no wgmma (HGMMA) instruction in {kernel}")
+
+    if phase == "lm_train_dist":
+        phase_lm_train_dist(dev)
+        if FAILURES:
+            raise SmokeFailure(f"{len(FAILURES)} check(s) failed: "
+                               f"{FAILURES}")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
 
     from repro_torch.core import (KernelSpec, build_setup, central_kpca,
                                   local_kpca, neighborhood_kpca, oos, ring,
@@ -2535,7 +3137,10 @@ def main(argv=None) -> int:
     path_launches["serve_kpca"] = phase_serve_kpca()
     path_launches["autotune"] = phase_autotune(dev, spec)
     path_launches["lm_serve"] = phase_lm_serve(dev)
-    path_launches["lm_train"] = phase_lm_train(dev, spec)
+    path_launches["lm_train"], train_ref = phase_lm_train(dev, spec)
+    path_launches["lm_train_mesh"] = phase_lm_train_mesh(dev, train_ref)
+    del train_ref
+    phase_lm_train_dist(dev)
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")

@@ -15,6 +15,13 @@ tensor.
 ``save_checkpoint_async`` copies every leaf to host memory before it
 returns, then writes on a daemon thread, so training can go on (and change
 its tensors in place) while the disk write proceeds.
+
+Over a device mesh (``shardings``: key -> (spec, mesh), each leaf a rank's
+shard) every rank calls ``save_checkpoint``: each leaf is all-gathered in
+turn and rank 0 writes it whole, so the files are the mesh-independent
+form the JAX package writes and one leaf at a time is the extra memory.
+``restore_checkpoint(..., shardings=)`` places each leaf's shard on the
+mesh's device, whatever mesh (or none) wrote it: an elastic restore.
 """
 
 from __future__ import annotations
@@ -58,9 +65,40 @@ def _from_file(path: str, dtype: str):
     return arr
 
 
+def _gathered(tree: Dict[str, Any], shardings):
+    """(key, whole leaf) in key order; over a mesh each sharded leaf is
+    all-gathered on every rank as it is reached."""
+    from ..distributed.collectives import gather_full
+    for key, val in tree.items():
+        if shardings and key in shardings:
+            spec, mesh = shardings[key]
+            val = gather_full(val, spec, mesh)
+        yield key, val
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any],
-                    metadata: Optional[dict] = None, keep_last: int = 3):
-    """tree: flat dict key -> tensor / array. Returns the step directory."""
+                    metadata: Optional[dict] = None, keep_last: int = 3,
+                    shardings: Optional[Dict[str, Any]] = None):
+    """tree: flat dict key -> tensor / array. Returns the step directory.
+    ``shardings`` (key -> (spec, mesh)): every rank of the mesh calls this
+    with its shards; rank 0 writes, the others join the gathers and wait
+    until the step directory is in place."""
+    if shardings:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            for _ in _gathered(tree, shardings):
+                pass
+            dist.barrier()
+            return os.path.join(ckpt_dir, f"step_{step:08d}")
+        try:
+            return _write(ckpt_dir, step, _gathered(tree, shardings),
+                          metadata, keep_last)
+        finally:
+            dist.barrier()
+    return _write(ckpt_dir, step, tree.items(), metadata, keep_last)
+
+
+def _write(ckpt_dir: str, step: int, items, metadata, keep_last: int):
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -68,7 +106,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any],
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
-    for key, val in tree.items():
+    for key, val in items:
         arr = _to_numpy(val)
         fname = _escape(key) + ".npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -109,9 +147,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None):
+def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
+                       shardings: Optional[Dict[str, Any]] = None):
     """Returns (tree of numpy arrays, bf16 leaves as bf16 CPU tensors,
-    metadata, step); latest step by default."""
+    metadata, step); latest step by default. With ``shardings`` (key ->
+    (spec, mesh)) those leaves are this rank's shards instead, as tensors
+    on the mesh's device (read and cut one leaf at a time)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -119,8 +160,15 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None):
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    tree = {key: _from_file(os.path.join(d, info["file"]), info["dtype"])
-            for key, info in manifest["leaves"].items()}
+    tree = {}
+    for key, info in manifest["leaves"].items():
+        val = _from_file(os.path.join(d, info["file"]), info["dtype"])
+        if shardings and key in shardings:
+            from ..distributed.sharding import local_shard
+            spec, mesh = shardings[key]
+            val = local_shard(torch.as_tensor(val), spec, mesh).to(
+                mesh.device, copy=True, memory_format=torch.contiguous_format)
+        tree[key] = val
     return tree, manifest["metadata"], step
 
 

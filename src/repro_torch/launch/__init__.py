@@ -1,8 +1,12 @@
 """The port's launchers and what they share: device layouts (``mesh``: the
-serving mesh, the ring's process group), the process environment
-(``env``) and the serving launchers (``python -m
-repro_torch.launch.serve_kpca``, ``python -m repro_torch.launch.serve``)."""
+serving mesh, the ring's process group, the training meshes), the process
+environment
+(``env``) and the launchers (``python -m repro_torch.launch.serve_kpca``,
+``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.train``)."""
 
-from .mesh import make_process_group, make_serving_mesh
+from .mesh import (make_mesh, make_process_group, make_production_mesh,
+                   make_serving_mesh, mesh_shardings, replicate_on_mesh)
 
-__all__ = ["make_process_group", "make_serving_mesh"]
+__all__ = ["make_mesh", "make_process_group", "make_production_mesh",
+           "make_serving_mesh", "mesh_shardings", "replicate_on_mesh"]

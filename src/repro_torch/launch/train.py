@@ -10,14 +10,24 @@ Draws the model's weights from a seeded ``torch.Generator`` on the device
 and its tokens from ``TokenStream``, trains with AdamW under a cosine
 schedule (warmup steps // 20), and prints ``final loss: ... (first: ...);
 straggler flags: ...``. Runs on the card unless ``REPRO_PLATFORM=cpu``
-(``repro_torch.launch.env``). ``--mesh`` (data- and tensor-parallel
-training) raises ``NotImplementedError``: ROADMAP queue A.
+(``repro_torch.launch.env``).
+
+``--mesh DxM`` trains data- and tensor-parallel over a (data=D, model=M)
+mesh, one process per card (NCCL; gloo on the CPU), started by
+``torchrun``, which sets RANK, WORLD_SIZE, LOCAL_RANK and the meeting
+point; rank 0 alone prints the last line:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch llama3.2-3b --mesh 2x2 \
+        --steps 6 --batch 4 --seq 128
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..data.tokens import TokenStream
@@ -27,8 +37,8 @@ from ..obs import trace
 from ..obs.cli import add_obs_args, obs_session
 from ..optim import AdamWConfig, cosine_with_warmup
 from ..train import TrainConfig, activation_probe, train
-from ..train.loop import MESH_NOT_PORTED
 from .env import device_from_environ
+from .mesh import make_mesh
 
 
 def main(argv=None):
@@ -44,11 +54,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--probe-every", type=int, default=0)
     ap.add_argument("--mesh", default=None,
-                    help="e.g. '4x2' => (data=4, model=2); not ported")
+                    help="e.g. '4x2' => (data=4, model=2), one process "
+                         "per card under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
     try:
         device = resolve_device(device_from_environ())
     except (RuntimeError, ValueError) as e:
@@ -57,7 +66,26 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(message)s")
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    model = build_model(cfg, device=device)
+    mesh = None
+    if args.mesh:
+        dims = tuple(int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(dims, ("data", "model")[: len(dims)], device=device)
+        device = mesh.device
+    try:
+        history = _run(args, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if history is not None:
+        print(f"final loss: {history['loss'][-1]:.4f} "
+              f"(first: {history['loss'][0]:.4f}); "
+              f"straggler flags: {history['straggler_flags']}")
+
+
+def _run(args, cfg, device, mesh):
+    """Train; returns the history on the rank that prints (rank 0, or the
+    one process without a mesh), else None."""
+    model = build_model(cfg, mesh=mesh, device=device)
     data = TokenStream(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
                        seed=args.seed, device=str(device))
     opt = AdamWConfig(lr=args.lr,
@@ -67,13 +95,13 @@ def main(argv=None):
                        ckpt_every=args.ckpt_every, seed=args.seed,
                        probe_every=args.probe_every)
     probe = (lambda state, batch: activation_probe(
-        state["params"], batch)) if args.probe_every else None
+        state["params"], batch, mesh=mesh,
+        shards=model.shards())) if args.probe_every else None
     with obs_session(args):
         with trace.span("train.run", arch=args.arch, steps=args.steps):
-            state, history = train(model, opt, data, tcfg, probe_fn=probe)
-    print(f"final loss: {history['loss'][-1]:.4f} "
-          f"(first: {history['loss'][0]:.4f}); "
-          f"straggler flags: {history['straggler_flags']}")
+            _, history = train(model, opt, data, tcfg, mesh=mesh,
+                               probe_fn=probe)
+    return history if mesh is None or dist.get_rank() == 0 else None
 
 
 if __name__ == "__main__":

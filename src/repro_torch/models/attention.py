@@ -13,6 +13,18 @@ chunked forms are the same online-softmax loops written
 as Python loops over the chunks. Cache writes return new tensors (the
 cache passed in is left as it was), clamping a write that would run past
 the end to the last slots, as ``dynamic_update_slice`` does.
+
+Over a mesh (``shards``, training only) whose "model" axis splits the
+heads, each shard runs its own q heads (Megatron): "f" before the
+head-splitting products (q/k/v from x; for MLA, from the replicated
+latents c_kv, k_rope and cq) and "g" after wo. Where the kv heads do not
+divide by the axis (kv_heads falls back to replicated), each shard takes
+the kv heads its own q heads group with, one per q head. Weights
+replicated over "model" that a shard uses only part of (those kv heads,
+the qk-norm scales) go through "f" themselves, so their gradients are
+summed over the shards. With the heads replicated every shard runs the
+whole attention. The JAX package's ``_seq_shard`` (``attn_seq_shard``) is
+a GSPMD layout hint with no numeric effect and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -205,16 +217,44 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def gqa_forward(p, cfg: ArchConfig, x, positions, causal=True,
-                cache: Optional[KVCache] = None, cache_len=None, mesh=None):
-    """x (B,S,E). With cache: decode/append mode — writes new kv at
-    positions, attends over the cache. Returns (out, new_cache)."""
+def _heads_split(shards, key: str = "wo") -> bool:
+    return shards is not None and shards.model_dim(key) is not None
+
+
+def _gqa_qkv(p, cfg: ArchConfig, x, shards):
+    """q, k, v of this shard's q heads: (B,S,Hq,D), (B,S,Hk,D) x 2."""
+    if not _heads_split(shards):
+        return tuple(tok_einsum("bse,ehd->bshd", x, p[w].to(x.dtype))
+                     for w in ("wq", "wk", "wv"))
+    x = shards.f(x)
     q = tok_einsum("bse,ehd->bshd", x, p["wq"].to(x.dtype))
-    k = tok_einsum("bse,ehd->bshd", x, p["wk"].to(x.dtype))
-    v = tok_einsum("bse,ehd->bshd", x, p["wv"].to(x.dtype))
+    if shards.model_dim("wk") is not None:
+        return (q,) + tuple(tok_einsum("bse,ehd->bshd", x, p[w].to(x.dtype))
+                            for w in ("wk", "wv"))
+    # kv heads replicated: the kv head of each of this shard's q heads
+    hq = q.shape[2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv = (shards.mi * hq + torch.arange(hq, device=x.device)) // group
+    lo, hi = int(kv[0]), int(kv[-1]) + 1
+    k, v = (tok_einsum("bse,ehd->bshd", x,
+                       shards.f(p[w])[:, lo:hi].to(x.dtype))[:, :, kv - lo]
+            for w in ("wk", "wv"))
+    return q, k, v
+
+
+def gqa_forward(p, cfg: ArchConfig, x, positions, causal=True,
+                cache: Optional[KVCache] = None, cache_len=None, mesh=None,
+                shards=None):
+    """x (B,S,E). With cache: decode/append mode — writes new kv at
+    positions, attends over the cache. Returns (out, new_cache).
+    ``shards``: the layout of ``p`` on the training mesh (no cache)."""
+    q, k, v = _gqa_qkv(p, cfg, x, shards)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if _heads_split(shards):
+            qn, kn = shards.f(qn), shards.f(kn)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -250,6 +290,8 @@ def gqa_forward(p, cfg: ArchConfig, x, positions, causal=True,
             out = sdpa(cfg, q, ck.to(q.dtype), cv.to(q.dtype), bias)
         new_cache = KVCache(ck, cv)
     out = tok_einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
+    if _heads_split(shards):
+        out = shards.g(out)
     return out, new_cache
 
 
@@ -279,24 +321,30 @@ class MLACache(NamedTuple):
     k_rope: torch.Tensor      # (B, T, dr)   shared rotary key part
 
 
-def _mla_q(p, cfg, x, positions):
+def _mla_q(p, cfg, x, positions, f=lambda t: t):
+    """(q_nope, q_rope) of the heads of ``p``; ``f`` is applied to the
+    replicated tensor the head-splitting product reads."""
     if cfg.q_lora_rank:
         cq = tok_einsum("bse,er->bsr", x, p["w_dq"].to(x.dtype))
-        q = tok_einsum("bsr,rhd->bshd", cq, p["w_uq"].to(x.dtype))
+        q = tok_einsum("bsr,rhd->bshd", f(cq), p["w_uq"].to(x.dtype))
     else:
-        q = tok_einsum("bse,ehd->bshd", x, p["w_q"].to(x.dtype))
+        q = tok_einsum("bse,ehd->bshd", f(x), p["w_q"].to(x.dtype))
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
-def mla_forward(p, cfg: ArchConfig, x, positions, causal=True):
-    """Training/prefill path: decompress K/V and run standard attention."""
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c_kv = tok_einsum("bse,ec->bsc", x, p["w_dkv"].to(x.dtype))
-    k_rope = apply_rope(tok_einsum("bse,ed->bsd", x,
-                                     p["w_kr"].to(x.dtype)),
-                        positions, cfg.rope_theta)
+def mla_forward(p, cfg: ArchConfig, x, positions, causal=True,
+                shards=None):
+    """Training/prefill path: decompress K/V and run standard attention.
+    ``shards``: the layout of ``p`` on the training mesh."""
+    split = _heads_split(shards)
+    f = shards.f if split else (lambda t: t)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, f)
+    c_kv = f(tok_einsum("bse,ec->bsc", x, p["w_dkv"].to(x.dtype)))
+    k_rope = f(apply_rope(tok_einsum("bse,ed->bsd", x,
+                                       p["w_kr"].to(x.dtype)),
+                          positions, cfg.rope_theta))
     k_nope = tok_einsum("bsc,chd->bshd", c_kv, p["w_uk"].to(x.dtype))
     v = tok_einsum("bsc,chd->bshd", c_kv, p["w_uv"].to(x.dtype))
 
@@ -317,7 +365,8 @@ def mla_forward(p, cfg: ArchConfig, x, positions, causal=True):
         sc = sc + bias[:, None]
         pr = torch.softmax(sc, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", pr, v)
-    return tok_einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
+    out = tok_einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
+    return shards.g(out) if split else out
 
 
 def mla_decode(p, cfg: ArchConfig, x, positions, cache: MLACache,

@@ -20,9 +20,12 @@ they are the same bits (measured on an NVIDIA H100 80GB HBM3 at a
 700.00 W power limit). A request's outputs also stop depending on what it
 is batched with.
 
-On one card there is no mesh: ``constrain_act`` returns its input and the
-``mesh`` arguments of the model functions are accepted and ignored.
-``ScanBlock.run`` is a loop over the stacked layer slices, with the JAX
+Over a device mesh (``repro_torch.distributed.Mesh``) each process holds
+its shard of every parameter (``distributed.sharding.spec_for``) and runs
+its rows of the batch (``local_batch``); the model functions take the
+layout as ``shards`` (``distributed.Shards``) and issue the collectives
+(FSDP gathers, Megatron "f" and "g") themselves. Without a mesh they run
+as on one card. ``ScanBlock.run`` is a loop over the stacked layer slices, with the JAX
 package's rematerialization policies under autograd (``remat``: "full"
 recomputes each layer in the backward pass, "dots" keeps the outputs of
 the token-by-weight products and recomputes the rest); ``unroll`` is
@@ -34,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.collectives import batch_axes_of
+
+# (path, full tensor, logical axes) -> the tensor the collector keeps
+Place = Callable[[str, torch.Tensor, Tuple[Optional[str], ...]],
+                 torch.Tensor]
 
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Tuple[Optional[str], ...]]
@@ -61,16 +69,26 @@ def model_device(device: DeviceLike) -> torch.device:
 
 class ParamCollector:
     """Creates parameters, records logical axes, draws from the generator
-    (None: the meta device)."""
+    (None: the meta device). ``place``, where given, gets each drawn
+    tensor whole with its path and axes and returns what the collector
+    keeps (a mesh rank's shard: the whole tensor is freed leaf by leaf)."""
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 place: Optional[Place] = None):
         self.generator = generator
         self.device = torch.device("meta") if generator is None \
             else generator.device
         self.dtype = dtype
+        self.place = place
         self.params: Params = {}
         self.axes: Axes = {}
+
+    def child_place(self, prefix: str) -> Optional[Place]:
+        """``place`` for a sub-collector whose paths go under ``prefix/``."""
+        if self.place is None:
+            return None
+        return lambda path, v, axes: self.place(f"{prefix}/{path}", v, axes)
 
     def _next(self) -> Optional[torch.Generator]:
         """The generator a sub-collector draws from (the JAX package splits
@@ -104,6 +122,8 @@ class ParamCollector:
             v = torch.randn(shape, generator=self.generator,
                             dtype=torch.float32, device=self.device)
             v = v.mul_(scale).to(dt)
+        if self.place is not None and self.device.type != "meta":
+            v = self.place(path, v, tuple(axes))
         self.params[path] = v
         self.axes[path] = tuple(axes)
         return v
@@ -184,14 +204,29 @@ def activation(name: str):
     return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
 
 
-def batch_axes_of(mesh):
-    """No mesh on one card: no batch axes."""
-    return None
+def local_batch(batch: Dict[str, torch.Tensor], mesh):
+    """(this rank's rows of ``batch``, shared): each entry split along its
+    leading (batch) dim over the mesh's batch axes. When the batch does not
+    divide by their size every rank runs the whole batch and ``shared`` is
+    True (the JAX package's ``constrain_act`` and ``moe_forward`` leave
+    such a batch replicated; it never raises). Without a mesh, or with one
+    rank on the batch axes, the batch as it is."""
+    if mesh is None:
+        return batch, False
+    axes = batch_axes_of(mesh)
+    dp = mesh.size(axes)
+    b = batch["tokens"].shape[0]
+    if dp == 1 or b % dp:
+        return batch, dp > 1
+    n, i = b // dp, mesh.index(axes)
+    return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}, False
 
 
 def constrain_act(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The JAX package pins activations to the mesh's batch axes; on one
-    card there is nothing to pin."""
+    """The JAX package pins activations to (batch over the data axes,
+    replicated) unless the batch does not divide; here each rank's
+    activations are already its own rows (``local_batch`` made that
+    choice), so there is nothing to pin."""
     return x
 
 

@@ -9,6 +9,18 @@ MLA's absorbed path where the config has MLA.
 VLM-stub models consume a prefix of precomputed frontend embeddings
 (``batch["frontend"]``, already at d_model) followed by text tokens; the
 loss is masked to text positions.
+
+``lm_loss`` over a mesh takes the global batch and runs this rank's rows
+(``common.local_batch``). Each layer all-gathers its FSDP-sharded weights
+inside the layer's rematerialized block, so the backward pass gathers
+them again instead of keeping every layer's. The embedding table is
+gathered once and serves the lookup and, tied, the logits. With the vocab
+split over "model", the lookup takes the rank's vocab slice, masked, then
+"g"; the logits are vocab-parallel and so is their cross-entropy (the
+row max and the exp-sum all-reduced over "model"). The loss is the global
+token mean: the masked sum and the count are summed over the batch axes
+(not the per-rank means: a VLM batch's masked counts differ by rank).
+Decode over a mesh is not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -20,10 +32,13 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from ..distributed import collectives as coll
+from ..distributed.collectives import Shards
+from ..distributed.sharding import tree_specs
 from .attention import (KVCache, MLACache, gqa_forward, init_gqa, init_mla,
                         mla_decode, mla_forward)
 from .common import (ParamCollector, ScanBlock, StackedCollector,
-                     constrain_act, dtype_of, layer_slices,
+                     constrain_act, dtype_of, layer_slices, local_batch,
                      model_device, remat_block, rms_norm, slice_layer,
                      tok_einsum)
 from .mlp import init_mlp, mlp_forward
@@ -35,10 +50,10 @@ from .moe import init_moe, moe_forward, moe_forward_ref
 # ----------------------------------------------------------------------
 
 def init_decoder_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
-                    mesh=None):
+                    mesh=None, place=None):
     """(params, axes), drawn from ``generator`` on its device (None: meta
-    tensors)."""
-    col = ParamCollector(generator, dtype_of(cfg.param_dtype))
+    tensors); ``place`` as ``ParamCollector``'s."""
+    col = ParamCollector(generator, dtype_of(cfg.param_dtype), place)
     e = cfg.d_model
     col.param("embed", (cfg.vocab, e), ("vocab", "embed"), scale=0.02)
     if not cfg.tie_embeddings:
@@ -60,7 +75,8 @@ def init_decoder_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
     n_scan = cfg.n_layers - cfg.first_k_dense
     # leading dense layers (deepseek-v2 pattern), unstacked
     for i in range(cfg.first_k_dense):
-        sub = ParamCollector(col._next(), col.dtype)
+        sub = ParamCollector(col._next(), col.dtype,
+                             col.child_place(f"dense{i}"))
         layer_block(sub, moe=False)
         for k, v in sub.params.items():
             col.params[f"dense{i}/{k}"] = v
@@ -74,29 +90,44 @@ def init_decoder_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
 # blocks
 # ----------------------------------------------------------------------
 
-def _moe(p, cfg, h, mesh):
+def model_shards(cfg: ArchConfig, mesh, rules) -> Shards:
+    """The layout of the model's parameters on ``mesh`` under ``rules``,
+    from its meta-device tree."""
+    params, axes = init_decoder_lm(cfg, None)
+    return Shards(mesh, tree_specs(axes, params, rules, mesh))
+
+
+def _moe(p, cfg, h, mesh, shards=None):
     mp = slice_layer(p, "moe")
     if mesh is not None:
-        return moe_forward(mp, cfg, h, mesh)
+        return moe_forward(mp, cfg, h, mesh,
+                           shards=shards and shards.sub("moe"))
     return moe_forward_ref(mp, cfg, h)
 
 
-def _block_train(cfg: ArchConfig, mesh):
+def _block_train(cfg: ArchConfig, mesh, shards=None):
+    """The layer's block; ``shards``: one layer's layout (its FSDP-sharded
+    weights are gathered first thing in the block)."""
+    sub = lambda name: shards and shards.sub(name)
+
     def block(p, carry):
         x, positions, aux = carry
+        if shards is not None:
+            p = shards.gather(p)
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
         ap = slice_layer(p, "attn")
         if cfg.attn_kind == "mla":
-            a = mla_forward(ap, cfg, h, positions)
+            a = mla_forward(ap, cfg, h, positions, shards=sub("attn"))
         else:
-            a, _ = gqa_forward(ap, cfg, h, positions, mesh=mesh)
+            a, _ = gqa_forward(ap, cfg, h, positions, mesh=mesh,
+                               shards=sub("attn"))
         x = x + a
         h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         if "moe/router" in p:
-            m, aux_l = _moe(p, cfg, h, mesh)
+            m, aux_l = _moe(p, cfg, h, mesh, shards)
             aux = aux + aux_l
         else:
-            m = mlp_forward(slice_layer(p, "mlp"), cfg, h)
+            m = mlp_forward(slice_layer(p, "mlp"), cfg, h, sub("mlp"))
         return (constrain_act(x + m, mesh), positions, aux), None
     return block
 
@@ -127,17 +158,33 @@ def _block_decode(cfg: ArchConfig, mesh):
 # forward passes
 # ----------------------------------------------------------------------
 
-def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """The token rows of the table, through ``F.embedding``: its backward
-    sums the rows of repeated tokens in a fixed order, where PyTorch lists
-    indexing's backward on the CPU (an ``index_put_`` with accumulation)
-    as nondeterministic; the training checks compare grads bitwise."""
-    return F.embedding(tokens.long(), params["embed"]).to(
+def embed_rows(emb: torch.Tensor, tokens: torch.Tensor,
+               shards=None) -> torch.Tensor:
+    """The token rows of the table ``emb`` in its dtype, through
+    ``F.embedding``: its backward sums the rows of repeated tokens in a
+    fixed order, where PyTorch lists indexing's backward on the CPU (an
+    ``index_put_`` with accumulation) as nondeterministic; the training
+    checks compare grads bitwise. With the vocab split over "model"
+    (``shards``), each rank looks up its own slice, zeroes the rows of the
+    tokens outside it and "g" sums them."""
+    tokens = tokens.long()
+    if shards is None or shards.model_dim("embed") is None:
+        return F.embedding(tokens, emb)
+    t = tokens - shards.mi * emb.shape[0]
+    inside = (t >= 0) & (t < emb.shape[0])
+    rows = F.embedding(torch.where(inside, t, 0), emb)
+    return shards.g(torch.where(inside[..., None], rows, rows.new_zeros(())))
+
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
+           shards=None) -> torch.Tensor:
+    return embed_rows(params["embed"], tokens, shards).to(
         dtype_of(cfg.compute_dtype))
 
 
-def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
-    x = _embed(params, cfg, batch["tokens"])
+def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any],
+                  shards=None):
+    x = _embed(params, cfg, batch["tokens"], shards)
     if cfg.frontend != "none" and "frontend" in batch:
         fe = batch["frontend"].to(x.dtype)
         x = torch.cat([fe, x], dim=1)
@@ -146,47 +193,106 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict[str, Any]):
     return x, positions
 
 
-def _run_layers(params, cfg: ArchConfig, x, positions, mesh):
+def _run_layers(params, cfg: ArchConfig, x, positions, mesh, shards=None):
     x = constrain_act(x, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _block_train(cfg, mesh)
-    dense = remat_block(block, "full" if cfg.remat != "none" else "none")
     for i in range(cfg.first_k_dense):
+        block = _block_train(cfg, mesh, shards and shards.sub(f"dense{i}"))
+        dense = remat_block(block, "full" if cfg.remat != "none" else "none")
         (x, positions, aux), _ = dense(slice_layer(params, f"dense{i}"),
                                        (x, positions, aux))
     stacked = slice_layer(params, "layers")
+    block = _block_train(cfg, mesh,
+                         shards and shards.sub("layers", stacked=True))
     (x, positions, aux), _ = ScanBlock.run(
         block, stacked, (x, positions, aux), remat=cfg.remat,
         unroll=cfg.unroll_scans)
     return x, aux
 
 
-def _logits(params, cfg: ArchConfig, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _head(params, cfg: ArchConfig, shards=None):
+    """(the output head (E, V or V / tp), vocab split over "model")."""
+    if cfg.tie_embeddings:
+        head, key, vdim = params["embed"].T, "embed", 0
+    else:
+        head, key, vdim = params["lm_head"], "lm_head", 1
+    return head, shards is not None and shards.model_dim(key) == vdim
+
+
+def _logits(params, cfg: ArchConfig, x, shards=None):
+    head, split = _head(params, cfg, shards)
+    if split:
+        x = shards.f(x)
     return tok_einsum("bse,ev->bsv", x, head.to(x.dtype))
 
 
-def lm_loss(params, cfg: ArchConfig, batch, mesh=None):
+def _nll(logits: torch.Tensor, targets: torch.Tensor, shards=None,
+         split: bool = False) -> torch.Tensor:
+    """Per-token cross-entropy of fp32 logits; ``split``: the logits are
+    this rank's vocab slice (vocab-parallel: the row max and the exp-sum
+    all-reduced over "model", the gold logit summed from its owner)."""
+    if not split:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, targets[..., None],
+                                    dim=-1)[..., 0]
+        return lse - gold
+    vloc = logits.shape[-1]
+    top = coll.all_reduce_(logits.detach().amax(dim=-1), shards.mesh,
+                           coll.MODEL, op=torch.distributed.ReduceOp.MAX)
+    lse = torch.log(shards.g(torch.sum(torch.exp(logits - top[..., None]),
+                                       dim=-1))) + top
+    t = targets - shards.mi * vloc
+    inside = (t >= 0) & (t < vloc)
+    gold = torch.take_along_dim(logits, torch.where(inside, t, 0)[..., None],
+                                dim=-1)[..., 0]
+    return lse - shards.g(torch.where(inside, gold, gold.new_zeros(())))
+
+
+def lm_loss(params, cfg: ArchConfig, batch, mesh=None, shards=None):
     """Next-token CE, masked to text positions. Returns (loss, metrics);
-    differentiable, with each stacked layer under ``cfg.remat``."""
-    x, positions = _embed_inputs(params, cfg, batch)
-    x, aux = _run_layers(params, cfg, x, positions, mesh)
+    differentiable, with each stacked layer under ``cfg.remat``. Over
+    ``mesh``: ``params`` are this rank's shards, laid out as ``shards``
+    says (``Model.shards()``), ``batch`` the global
+    batch; the loss is the global one on every rank, and each rank's
+    gradients are its shards' (summed over the batch axes by the FSDP
+    reduce-scatter; the caller sums those of the leaves replicated over
+    them)."""
+    if mesh is not None and shards is None:
+        raise ValueError("lm_loss over a mesh needs the params' layout "
+                         "(shards=)")
+    batch, shared = local_batch(batch, mesh)
+    if shards is not None:
+        # the table (and head) once for the lookup and the logits
+        params = dict(params, **shards.gather(
+            {k: params[k] for k in ("embed", "lm_head") if k in params}))
+    x, positions = _embed_inputs(params, cfg, batch, shards)
+    x, aux = _run_layers(params, cfg, x, positions, mesh, shards)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     f = cfg.frontend_seq if (cfg.frontend != "none"
                              and "frontend" in batch) else 0
     x = x[:, f:]                                   # text region only
-    logits = _logits(params, cfg, x).float()
+    logits = _logits(params, cfg, x, shards).float()
     targets = batch["labels"].long()
     mask = batch.get("loss_mask")
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
-    nll = lse - gold
+    nll = _nll(logits, targets, shards, _head(params, cfg, shards)[1])
+    dp = 1 if shards is None or shared else shards.dp
     if mask is not None:
         nll = nll * mask
-        denom = torch.clamp(torch.sum(mask), min=1.0)
+        denom = torch.sum(mask)
+        if dp > 1:
+            denom = coll.all_reduce_(denom.clone(), shards.mesh,
+                                     shards.batch_axes)
+        denom = torch.clamp(denom, min=1.0)
     else:
-        denom = nll.numel()
-    loss = torch.sum(nll) / denom
+        denom = nll.numel() * dp
+    num = torch.sum(nll)
+    if dp > 1:
+        num = coll.reduce_from(num, shards.mesh, shards.batch_axes)
+    loss = num / denom
+    if shared:
+        # every rank ran the whole batch: their summed gradients count it
+        # once
+        loss = coll.scale_grad(loss, 1.0 / shards.dp)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux}
 
@@ -213,7 +319,11 @@ def lm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
                    mesh=None):
     """tokens (B, S) at positions cache_len.. -> (logits (B, V) of the last
     position, new cache). cache_len: an int (or a 0-d tensor). The cache
-    passed in is left as it was."""
+    passed in is left as it was. One device: decode over a mesh is not
+    ported (ROADMAP queue A)."""
+    if mesh is not None:
+        raise NotImplementedError("decode over a mesh is not ported yet "
+                                  "(ROADMAP queue A)")
     cl = int(cache_len)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape

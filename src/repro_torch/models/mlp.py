@@ -1,4 +1,10 @@
-"""Gated MLP (SwiGLU family); counterpart of ``repro.models.mlp``."""
+"""Gated MLP (SwiGLU family); counterpart of ``repro.models.mlp``.
+
+Over a mesh (``shards``) whose "model" axis splits the hidden dim,
+w_gate/w_up are column-parallel and w_down row-parallel (Megatron): the
+input goes through "f", each shard computes its slice of the hidden
+units, and "g" sums the shards' partial outputs. With the hidden dim
+replicated (it does not divide) every shard computes the whole MLP."""
 
 from __future__ import annotations
 
@@ -17,8 +23,13 @@ def init_mlp(col: ParamCollector, cfg: ArchConfig, prefix: str = "mlp",
     col.param(f"{prefix}/w_down", (f, e), ("mlp", "embed"))
 
 
-def mlp_forward(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                shards=None) -> torch.Tensor:
+    tp = shards is not None and shards.model_dim("w_down") is not None
+    if tp:
+        x = shards.f(x)
     act = activation(cfg.act)
     g = act(tok_einsum("bse,ef->bsf", x, p["w_gate"].to(x.dtype)))
     u = tok_einsum("bse,ef->bsf", x, p["w_up"].to(x.dtype))
-    return tok_einsum("bsf,fe->bse", g * u, p["w_down"].to(x.dtype))
+    y = tok_einsum("bsf,fe->bse", g * u, p["w_down"].to(x.dtype))
+    return shards.g(y) if tp else y

@@ -8,7 +8,13 @@
 
 The decoder families (dense, moe, vlm: 7 of the 10 configs) are ported.
 ``model.init(None)`` builds on the meta device: shapes, dtypes and axes,
-no memory.
+no memory. ``build_model(cfg, mesh=mesh)`` keeps the training mesh (a
+``repro_torch.distributed.Mesh``) and passes it through, as the JAX
+``Model`` does. The mesh and its rules live on the model alone:
+``model.with_mesh(mesh, rules)`` (rules default: ``default_rules``) is the
+one place they are set, ``model.shards()`` the parameters' layout under
+them, and ``model.init(key, place=...)`` hands each drawn leaf to
+``place`` (a rank keeps its shard).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from ..distributed.sharding import default_rules
 from . import lm
 from .common import model_device
 
@@ -41,16 +48,36 @@ class Model:
     _init_cache: Callable
     _decode: Callable
     _prefill: Optional[Callable] = None
+    rules: Optional[Any] = None
+    _shards: Optional[Any] = dataclasses.field(default=None, repr=False)
 
-    def init(self, key: Union[int, torch.Generator, None] = 0):
+    def init(self, key: Union[int, torch.Generator, None] = 0, place=None):
         """(params, axes): from a seed (a generator on the model's device),
-        a ``torch.Generator`` (its device), or None (meta tensors)."""
+        a ``torch.Generator`` (its device), or None (meta tensors);
+        ``place`` as ``common.ParamCollector``'s."""
         if isinstance(key, int):
             key = torch.Generator(device=self.device).manual_seed(key)
-        return self._init(self.cfg, key, mesh=self.mesh)
+        return self._init(self.cfg, key, mesh=self.mesh, place=place)
+
+    def shards(self):
+        """The parameters' layout on the mesh (None without one)."""
+        if self.mesh is not None and self._shards is None:
+            self._shards = lm.model_shards(self.cfg, self.mesh, self.rules)
+        return self._shards
+
+    def with_mesh(self, mesh, rules=None) -> "Model":
+        """This model on ``mesh`` under ``rules`` (default:
+        ``default_rules``; itself if it is so already)."""
+        if mesh is not None and rules is None:
+            rules = default_rules("pod" in mesh.axis_names)
+        if mesh is self.mesh and rules == self.rules:
+            return self
+        return dataclasses.replace(self, mesh=mesh, rules=rules,
+                                   _shards=None)
 
     def loss(self, params, batch):
-        return self._loss(params, self.cfg, batch, mesh=self.mesh)
+        return self._loss(params, self.cfg, batch, mesh=self.mesh,
+                          shards=self.shards())
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device: Optional[DeviceLike] = None):
@@ -74,11 +101,15 @@ class Model:
 def build_model(cfg: ArchConfig, mesh=None,
                 device: DeviceLike = "cuda") -> Model:
     """The model of ``cfg`` on ``device`` (the card unless the caller asks
-    for the CPU, or "meta" for shapes only)."""
+    for the CPU, or "meta" for shapes only; over a mesh, the mesh's
+    device by default), on ``mesh`` under ``default_rules``."""
     fam = cfg.family
+    if mesh is not None and device == "cuda":
+        device = mesh.device
     if fam in ("dense", "moe", "vlm"):
-        return Model(cfg, mesh, model_device(device), lm.init_decoder_lm,
-                     lm.lm_loss, lm.init_kv_cache, lm.lm_decode_step)
+        return Model(cfg, None, model_device(device), lm.init_decoder_lm,
+                     lm.lm_loss, lm.init_kv_cache,
+                     lm.lm_decode_step).with_mesh(mesh)
     if fam in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family is not ported yet (ROADMAP "

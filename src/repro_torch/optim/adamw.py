@@ -13,6 +13,11 @@ At llama3.2-3b's width the functional form does not fit on one 80 GB card
 28 x 3072 x 8192 stack take about 20 GB), while the in-place form adds at
 most a few slices of ``SLICE_ELEMS`` fp32 values to the state it updates.
 The two give the same bits.
+
+Over a device mesh every leaf is a rank's shard and the update runs on
+the shards as it is; ``global_norm`` takes the leaves' specs and the mesh
+and sums each shard's squares over the axes its leaf is split on (a leaf
+replicated over an axis counts once, not once per rank).
 """
 
 from __future__ import annotations
@@ -68,11 +73,36 @@ def _row_slices(t: torch.Tensor):
     return list(t.split(rows))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares in fp32, each leaf summed a
-    slice of rows at a time (so no leaf is widened whole)."""
-    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
-                          for g in _leaves(tree) for s in _row_slices(g)))
+    slice of rows at a time (so no leaf is widened whole).
+
+    Over ``mesh``: ``tree`` maps keys to this rank's shards and ``specs``
+    maps the same keys to their specs; each slice's sum is all-reduced
+    over the mesh axes its leaf is split on (one all-reduce per set of
+    axes, of every such slice's sum at once), and the sums are added in
+    the same order as without a mesh, so a mesh of one rank gives the same
+    bits."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(s.float()))
+                              for g in _leaves(tree)
+                              for s in _row_slices(g)))
+    from ..distributed.collectives import all_reduce_
+    from ..distributed.sharding import axes_of
+    parts, by_axes = [], {}
+    for k, g in tree.items():
+        axes = tuple(sorted({a for e in specs[k] for a in axes_of(e)},
+                            key=mesh.axis_names.index))
+        for s in _row_slices(g):
+            by_axes.setdefault(axes, []).append(len(parts))
+            parts.append(torch.sum(torch.square(s.float())))
+    for axes, idx in by_axes.items():
+        if axes and mesh.size(axes) > 1:
+            summed = all_reduce_(torch.stack([parts[i] for i in idx]), mesh,
+                                 axes)
+            for j, i in enumerate(idx):
+                parts[i] = summed[j]
+    return torch.sqrt(sum(parts))
 
 
 def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor):

@@ -9,9 +9,11 @@ Per parameter of two or more dims, its gradient G folded to (m, n):
     4. G_hat = P Q^T;  error e = G - G_hat is fed back into the next step.
 
 ``compressed_psum_grads`` averages over the ranks of a ``torch.distributed``
-group (the JAX package averages over the data axes of a mesh inside a
-``shard_map``): each mean is an ``all_reduce`` of the sum over the group,
-divided by its size, and no gradient is gathered. ``compress_local`` is the
+group, or over the data axes of a device mesh (a
+``repro_torch.distributed.Mesh``: the ranks of its "data" sub-group, as
+the JAX package averages over a mesh's data axes inside a ``shard_map``):
+each mean is an ``all_reduce`` of the sum over the group, divided by its
+size, and no gradient is gathered. ``compress_local`` is the
 same math on one worker. 1-D parameters are averaged exactly (they are
 tiny).
 """
@@ -75,13 +77,18 @@ def _pmean(x: torch.Tensor, group) -> torch.Tensor:
     return out / dist.get_world_size(group)
 
 
-def compressed_psum_grads(grads: Dict[str, torch.Tensor], state, group=None):
-    """Average gradients over the ranks of ``group`` (default: the world)
-    with low-rank compression.
+def compressed_psum_grads(grads: Dict[str, torch.Tensor], state, group=None,
+                          data_axes=("data",)):
+    """Average gradients over the ranks of ``group`` (default: the world;
+    a device mesh: its sub-group over ``data_axes``) with low-rank
+    compression.
 
     grads are this rank's own (un-averaged) values. Returns (averaged
     grads, new state). As in PowerSGD, the mean of P with the SAME Q on
     every rank approximates the mean of G projected onto span(Q)."""
+    from ..distributed.collectives import Mesh
+    if isinstance(group, Mesh):
+        group = group.group(data_axes)
     new_grads, new_state = {}, {}
     for k, g in grads.items():
         if k not in state:

@@ -1,5 +1,6 @@
 """Training substrate of the port (counterpart of ``repro.train``): the
-single-device loop and the DKPCA activation probe."""
+loop, on one device or over a device mesh, and the DKPCA activation
+probe."""
 
 from .loop import StragglerMonitor, TrainConfig, build_train_step, train
 from .probes import activation_probe

@@ -2,11 +2,20 @@
 step with its NaN guard, checkpoint and restart, straggler monitoring, and
 the DKPCA activation probe as an optional hook.
 
-One device, no mesh: a ``mesh`` raises ``NotImplementedError`` (the data-
-and tensor-parallel half is ROADMAP queue A). The JAX step is jitted and
-donates its state; here ``step_fn`` updates the state's tensors in place
-(``optim.adamw_update_``), which is what lets llama3.2-3b train on one
-80 GB card, and returns the same dict.
+The JAX step is jitted and donates its state; here ``step_fn`` updates the
+state's tensors in place (``optim.adamw_update_``), which is what lets
+llama3.2-3b train on one 80 GB card, and returns the same dict.
+
+Over a device mesh (``mesh``, a ``repro_torch.distributed.Mesh``; one
+process per device, every process calling with the same arguments) the
+step computes what the JAX package's GSPMD step computes: params, m and v
+are each rank's shards under ``rules`` (``distributed.sharding``), every
+rank is fed the global batch and runs its rows of it, the gradients of the
+leaves that are not split over the batch axes are summed over them (the
+FSDP reduce-scatter sums the others), the grad norm is the global one, and
+the NaN guard reads the global loss and norm, the same on every rank.
+Checkpoints are written whole by rank 0 (the JAX package's
+mesh-independent form) and restored onto any mesh, or none.
 
 Checkpoints hold the state under the JAX package's leaf names
 (``params::<key>``, ``m::<key>``, ``v::<key>``, ``step::step``) and the data
@@ -26,14 +35,12 @@ import torch
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..device import DeviceLike
+from ..distributed.collectives import all_reduce_
+from ..distributed.sharding import axes_of, local_shard
 from ..optim import AdamWConfig, adamw_init, global_norm
 from ..optim.adamw import adamw_update_, learning_rate
 
 log = logging.getLogger("repro_torch.train")
-
-MESH_NOT_PORTED = ("a mesh: data- and tensor-parallel training is not "
-                   "ported yet (ROADMAP queue A: distributed/sharding.py, "
-                   "launch/mesh.make_mesh, build_train_step's mesh branch)")
 
 
 @dataclasses.dataclass
@@ -45,11 +52,6 @@ class TrainConfig:
     probe_every: int = 0          # 0 = off; DKPCA activation probe period
     straggler_factor: float = 3.0
     seed: int = 0
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
 
 
 def loss_and_grads(model, params, batch):
@@ -69,26 +71,64 @@ def loss_and_grads(model, params, batch):
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def sum_replicated_grads(grads, shards) -> None:
+    """Sum over the batch axes, in place of ``grads``, the gradients of the
+    leaves not split over them (one all-reduce per dtype, of those leaves
+    flattened together); the others' the FSDP reduce-scatter has summed."""
+    axes = shards.batch_axes
+    if shards.dp == 1:
+        return
+    keys = [k for k, spec in shards.specs.items()
+            if not set(axes) & {a for e in spec for a in axes_of(e)}]
+    for dt in dict.fromkeys(grads[k].dtype for k in keys):
+        ks = [k for k in keys if grads[k].dtype == dt]
+        flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in ks]),
+                           shards.mesh, axes)
+        for k, part in zip(ks, flat.split([grads[k].numel() for k in ks])):
+            grads[k] = part.view(grads[k].shape)
+
+
+def shard_place(shards):
+    """``Model.init``'s ``place``: keep this rank's shard of each leaf (a
+    copy, so the whole leaf is freed)."""
+    def place(path, v, axes):
+        part = local_shard(v, shards.specs[path], shards.mesh)
+        return v if part.shape == v.shape else part.clone(
+            memory_format=torch.contiguous_format)
+    return place
+
+
 def build_train_step(model, opt_cfg: AdamWConfig, mesh=None, rules=None):
     """Returns (init_fn, step_fn).
 
     ``init_fn(key)``: key a seed (a generator on the model's device) or a
-    ``torch.Generator``; returns (state, axes). ``step_fn(state, batch)``
-    updates ``state`` in place and returns (state, metrics): when the loss
-    or the grad norm is not finite, params, m and v stay as they were,
-    ``step`` still advances and ``metrics["skipped"]`` is 1 (the JAX
-    package's in-graph guard)."""
-    _no_mesh(mesh)
+    ``torch.Generator``; returns (state, axes). Over ``mesh`` each leaf is
+    drawn whole from the same generator as on one device and only this
+    rank's shard is kept, leaf by leaf. ``step_fn(state, batch)`` updates
+    ``state`` in place and returns (state, metrics): when the loss or the
+    grad norm is not finite, params, m and v stay as they were, ``step``
+    still advances and ``metrics["skipped"]`` is 1 (the JAX package's
+    in-graph guard). Over ``mesh`` (under ``rules``, default
+    ``default_rules``) ``batch`` is the global batch; the model takes each
+    rank's rows of it."""
+    if mesh is not None:
+        model = model.with_mesh(mesh, rules)
+    shards = model.shards()
 
     def init_fn(key):
-        params, axes = model.init(key)
+        params, axes = model.init(
+            key, place=None if shards is None else shard_place(shards))
         opt = adamw_init(params)
         return {"params": params, "m": opt["m"], "v": opt["v"],
                 "step": opt["step"]}, axes
 
     def step_fn(state, batch):
         total, metrics, grads = loss_and_grads(model, state["params"], batch)
-        gnorm = global_norm(grads)
+        if shards is None:
+            gnorm = global_norm(grads)
+        else:
+            sum_replicated_grads(grads, shards)
+            gnorm = global_norm(grads, shards.specs, shards.mesh)
         ok = bool(torch.isfinite(total) & torch.isfinite(gnorm))
         if ok:
             opt_metrics = adamw_update_(opt_cfg, state["params"], grads,
@@ -104,6 +144,16 @@ def build_train_step(model, opt_cfg: AdamWConfig, mesh=None, rules=None):
                        for k, v in metrics.items()}
 
     return init_fn, step_fn
+
+
+def state_shardings(shards):
+    """The flat checkpoint keys of the state (``_flatten_state``'s) with
+    their (spec, mesh); None without a mesh."""
+    if shards is None:
+        return None
+    return {f"{group}::{k}": (spec, shards.mesh)
+            for group in ("params", "m", "v")
+            for k, spec in shards.specs.items()}
 
 
 @dataclasses.dataclass
@@ -131,12 +181,18 @@ def train(model, opt_cfg: AdamWConfig, data_iter, tcfg: TrainConfig,
     """Run the loop; returns (final state, history dict: the JAX loop's
     keys, and ``skipped``, each step's NaN-guard flag). Resumes from the
     newest checkpoint in ``tcfg.ckpt_dir``, the data stream's state
-    included. A step's time is taken when its loss reaches the host."""
+    included, whatever mesh (or none) wrote it. A step's time is taken when
+    its loss reaches the host. Over ``mesh`` every rank calls it with the
+    same arguments and data stream (see ``build_train_step``)."""
+    if mesh is not None:
+        model = model.with_mesh(mesh, rules)
     init_fn, step_fn = build_train_step(model, opt_cfg, mesh, rules)
+    shardings = state_shardings(model.shards())
     state, axes = init_fn(tcfg.seed)
     start_step = 0
     if tcfg.ckpt_dir and latest_step(tcfg.ckpt_dir) is not None:
-        flat, meta, start_step = restore_checkpoint(tcfg.ckpt_dir)
+        flat, meta, start_step = restore_checkpoint(tcfg.ckpt_dir,
+                                                    shardings=shardings)
         state = _unflatten_state(flat, device=model.device)
         if "data_state" in meta and hasattr(data_iter, "restore"):
             data_iter.restore(meta["data_state"])
@@ -162,7 +218,8 @@ def train(model, opt_cfg: AdamWConfig, data_iter, tcfg: TrainConfig,
                 and (step + 1) % tcfg.ckpt_every == 0):
             save_checkpoint(tcfg.ckpt_dir, step + 1, _flatten_state(state),
                             metadata={"data_state": getattr(
-                                data_iter, "state", lambda: {})()})
+                                data_iter, "state", lambda: {})()},
+                            shardings=shardings)
     history["straggler_flags"] = monitor.flagged
     return state, history
 
@@ -190,5 +247,6 @@ def _unflatten_state(flat, device: DeviceLike = "cpu"):
     return state
 
 
-__all__ = ["MESH_NOT_PORTED", "StragglerMonitor", "TrainConfig",
-           "build_train_step", "loss_and_grads", "train"]
+__all__ = ["StragglerMonitor", "TrainConfig", "build_train_step",
+           "loss_and_grads", "shard_place", "state_shardings",
+           "sum_replicated_grads", "train"]

@@ -1370,3 +1370,119 @@ def test_probe_on_card_matches_its_cpu_run(cuda):
     scale = float(card.alpha.abs().max())
     assert float((runs["cpu"].alpha - card.alpha.cpu()).abs().max()) \
         <= 2e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# training over a device mesh
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_world1_step_on_card_is_the_step(nccl_world1, dtype):
+    """A (1, 1) mesh on a NCCL group of world 1 against no mesh: two steps
+    of the llama3.2-3b smoke config (remat "full") from the same seed give
+    the same losses and state, bit for bit, and issue no collective."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    _, dev = nccl_world1
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
+                              param_dtype=dtype, compute_dtype=dtype,
+                              remat="full")
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    opt = AdamWConfig(schedule=cosine_with_warmup(1, 2))
+    runs = []
+    for m in (None, mesh):
+        init_fn, step_fn = build_train_step(build_model(cfg, device=dev),
+                                            opt, m)
+        state, _ = init_fn(0)
+        data = TokenStream(cfg.vocab, 4, 32, seed=0, device=dev)
+        losses = [float(step_fn(state, data.next_batch())[1]["loss"])
+                  for _ in range(2)]
+        runs.append((losses, state))
+    assert runs[0][0] == runs[1][0]
+    for g in ("params", "m", "v"):
+        for k, v in runs[0][1][g].items():
+            assert torch.equal(v, runs[1][1][g][k]), (g, k)
+    assert not mesh.counts
+
+
+MESH_CARDS = 4
+
+
+def _mesh_rank(rank, world, store, out, shapes):
+    """One rank of the four-card case: the fp32 smoke model's params after
+    2 steps on each mesh, gathered, written by rank 0."""
+    from repro_torch.distributed.collectives import gather_full
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    import torch.distributed as dist
+    cfg = _fp32_smoke()
+    try:
+        meshes = [make_mesh(s, ("data", "model"), device="cuda", rank=rank,
+                            world_size=world, local_rank=rank,
+                            init_method=f"file://{store}") for s in shapes]
+        for shape, mesh in zip(shapes, meshes):
+            model = build_model(cfg, mesh=mesh)
+            init_fn, step_fn = build_train_step(
+                model, AdamWConfig(schedule=cosine_with_warmup(1, 2)), mesh)
+            state, _ = init_fn(0)
+            data = TokenStream(cfg.vocab, 4, 32, seed=0, device=mesh.device)
+            for _ in range(2):
+                step_fn(state, data.next_batch())
+            sh = model.shards()
+            full = {k: gather_full(v, sh.specs[k], mesh).cpu()
+                    for k, v in state["params"].items()}
+            if rank == 0:
+                torch.save(full, f"{out}/{shape[0]}x{shape[1]}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_steps_on_four_cards_match_one_card(cuda, tmp_path):
+    """The fp32 llama3.2-3b-smoke on (4, 1), (2, 2) and (1, 4) meshes of
+    four NCCL ranks (spawned, one card each) against one card: params
+    after 2 steps within 1e-4 max|p| of each tensor."""
+    import multiprocessing
+    if torch.cuda.device_count() < MESH_CARDS:
+        pytest.skip(f"needs {MESH_CARDS} CUDA devices, this host has "
+                    f"{torch.cuda.device_count()}")
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup
+    from repro_torch.train import build_train_step
+    shapes = ((4, 1), (2, 2), (1, 4))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(
+        r, MESH_CARDS, str(tmp_path / "store"), str(tmp_path), shapes))
+        for r in range(MESH_CARDS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not any(alive) and [p.exitcode for p in procs] == [0] * 4
+    cfg = _fp32_smoke()
+    init_fn, step_fn = build_train_step(
+        build_model(cfg, device=cuda),
+        AdamWConfig(schedule=cosine_with_warmup(1, 2)))
+    state, _ = init_fn(0)
+    data = TokenStream(cfg.vocab, 4, 32, seed=0, device=cuda)
+    for _ in range(2):
+        step_fn(state, data.next_batch())
+    for shape in shapes:
+        got = torch.load(tmp_path / f"{shape[0]}x{shape[1]}.pt")
+        for k, v in state["params"].items():
+            want = v.cpu()
+            assert float((got[k] - want).abs().max()) <= 1e-4 * float(
+                want.abs().max()), (shape, k)

@@ -565,13 +565,17 @@ def test_probe_hook_runs_in_the_loop():
 
 
 def test_a_mesh_raises():
-    model = build_model(TArch(**tiny_kw()), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tloop.build_train_step(model, topt.AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        activation_probe({"embed": torch.zeros(4, 4)},
-                         {"tokens": torch.zeros(4, 4, dtype=torch.int32)},
-                         mesh=object())
+    """A mesh whose size differs from the world raises, before any
+    process group is made (this process is a world of one)."""
+    from repro_torch.launch import make_mesh, make_production_mesh
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="needs 4 processes, the world "
+                                         "has 1"):
+        make_mesh((2, 2), ("data", "model"), device="cpu")
+    for multi, need in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {need} processes"):
+            make_production_mesh(multi_pod=multi, device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_straggler_monitor_twin():
