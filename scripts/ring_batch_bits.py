@@ -14,8 +14,13 @@ operation once on the batch of 4 and once on each node alone, and prints
 one JSON line per operation: bitwise or not, and the largest difference.
 Operations: the sweep's cross-Gram and the slot Grams (the gram kernel),
 the eigendecomposition (``psd_jitter_eigh``, cuSOLVER), the fused eq.
-12-13 update (the admm_step kernel), and a batched matrix product of the
-solver's kind (cuBLAS); and the one operation that is not per node, the
+12-13 update (the admm_step kernel), a batched matrix product of the
+solver's kind (cuBLAS), ``_sym_apply``, the centring statistics' row sums
+and node means, the z-update's two einsums and the residual's per-node
+sum; the same four in the form the ring runs them
+(``RingComm.local``: ``rows=True``, summed along contiguous rows), here
+and at the ring fit's shapes (J = 20, N = 100, S = 5: 20 nodes against
+blocks of 5 and of 1); and the one operation that is not per node, the
 global-centring mean: one card sums the 4 nodes' means with
 ``torch.sum``, four ranks with an all-reduce, which adds them in its own
 order (a left fold in rank order is printed as one such order). Also
@@ -38,6 +43,45 @@ def compare(name, batched, alone) -> None:
     print(json.dumps(dict(op=name, bitwise=all(
         torch.equal(b, a) for b, a in zip(batched, alone)),
         max_abs_diff=diff)), flush=True)
+
+
+def rows_forms(j, n, s, blocks, dev, gen, label) -> None:
+    """Two plain per-node sums (the residual's and the centring
+    statistics' kind), then the solver's four operations with rows=True,
+    on a batch of j nodes against the same on blocks of each size in
+    ``blocks``."""
+    import torch
+    from repro_torch.core.solver import (_kcross_apply, _res_part,
+                                         _sym_apply, _znorm2)
+    vec = torch.linalg.qr(torch.randn((j, n, n), generator=gen,
+                                      device=dev))[0]
+    scale = torch.rand((j, n), generator=gen, device=dev)
+    x = torch.randn((j, n, s), generator=gen, device=dev)
+    kcross = torch.randn((j, s, s, n, n), generator=gen, device=dev)
+    c = torch.randn((j, s, n), generator=gen, device=dev)
+    kc = _kcross_apply(kcross, c, rows=True)
+    d = torch.randn((j, n, s), generator=gen, device=dev)
+    for name, fn in (("torch.sum(d * d, dim=(1, 2)) (L,)",
+                      lambda d: torch.sum(d * d, dim=(1, 2))),
+                     ("torch.sum(d, dim=1) (L, S)",
+                      lambda d: torch.sum(d, dim=1))):
+        whole = fn(d)
+        for blk in blocks:
+            compare(f"{label} {name}, {j} against blocks of {blk}", [whole],
+                    [torch.cat([fn(d[i:i + blk]) for i in range(0, j, blk)])])
+    ops = (("_sym_apply rows=True (L, N, S)", _sym_apply, (vec, scale, x)),
+           ("z-update rows=True (L, S, N)", _kcross_apply, (kcross, c)),
+           ("z norm rows=True (L,)", _znorm2, (c, kc)),
+           ("residual rows=True (L,)", _res_part,
+            ((torch.rand((j, s), generator=gen, device=dev) > 0.3).float(),
+             d)))
+    for name, fn, args in ops:
+        whole = fn(*args, rows=True)
+        for blk in blocks:
+            parts = torch.cat([fn(*(a[i:i + blk] for a in args), rows=True)
+                               for i in range(0, j, blk)])
+            compare(f"{label} {name}, {j} against blocks of {blk}",
+                    [whole], [parts])
 
 
 def main() -> int:
@@ -75,6 +119,36 @@ def main() -> int:
                                 rho[i:i + 1]) for i in range(J)]
     compare("admm_step alpha (L, N, 1)", out[0], [o[0][0] for o in one])
     compare("bmm V @ (L, N, S)", vec @ b, [vec[i] @ b[i] for i in range(J)])
+    # the ring's other per-node operations (core/dkpca.py and
+    # core/solver.admm_step), each on the batch of J and on each node alone
+    from repro_torch.core.solver import _pinv_lam, _sym_apply
+    pinv = _pinv_lam(lam)
+    compare("_sym_apply K^-1 B (L, N, S)", _sym_apply(vec, pinv, b),
+            [_sym_apply(vec[i:i + 1], pinv[i:i + 1], b[i:i + 1])[0]
+             for i in range(J)])
+    kb = gram(spec, x, rot, gamma=g)
+    compare("centring sweep row sums torch.sum(kb, dim=2) (L, N)",
+            torch.sum(kb, dim=2), [torch.sum(kb[i:i + 1], dim=2)[0]
+                                   for i in range(J)])
+    m_own = torch.sum(kb, dim=2) / (J * N)
+    compare("centring node means torch.sum(m_own, dim=1) (L,)",
+            [torch.sum(m_own, dim=1)], [torch.stack([
+                torch.sum(m_own[i:i + 1], dim=1)[0] for i in range(J)])])
+    kcross = kfull.reshape(J, S, N, S, N).permute(0, 1, 3, 2, 4).contiguous()
+    c = torch.randn((J, S, N), generator=gen, device=dev)
+    kc = torch.einsum("jabnm,jbm->jan", kcross, c)
+    compare("z-update einsum jabnm,jbm->jan (L, S, N)", kc,
+            [torch.einsum("jabnm,jbm->jan", kcross[i:i + 1], c[i:i + 1])[0]
+             for i in range(J)])
+    compare("z norm einsum jan,jan->j (L,)",
+            [torch.einsum("jan,jan->j", c, kc)],
+            [torch.stack([torch.einsum("jan,jan->j", c[i:i + 1],
+                                       kc[i:i + 1])[0] for i in range(J)])])
+    diff = gg - b
+    compare("residual torch.sum(d * d, dim=(1, 2)) (L,)",
+            [torch.sum(diff * diff, dim=(1, 2))],
+            [torch.stack([torch.sum(diff[i:i + 1] * diff[i:i + 1],
+                                    dim=(1, 2))[0] for i in range(J)])])
     # the global-centring statistics as core/dkpca.py forms them
     macc = sum(torch.sum(gram(spec, x, torch.roll(x, -t, dims=0), gamma=g),
                          dim=2) for t in range(J))
@@ -84,6 +158,12 @@ def main() -> int:
         fold = fold + v
     compare("centring mean: torch.sum against a left fold over the nodes",
             [torch.sum(node_means)], [fold])
+    # the forms the ring runs (RingComm.local: rows=True), at the probe's
+    # shapes (4 nodes against each alone) and the ring fit's (20 nodes of
+    # N = 100, S = 5: a world-1 ring against blocks of 5, the four-card
+    # ring's, and of 1)
+    rows_forms(J, N, S, (1,), dev, gen, "probe")
+    rows_forms(20, 100, 5, (5, 1), dev, gen, "ring fit")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

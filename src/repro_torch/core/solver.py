@@ -28,6 +28,7 @@ early-stop test.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
@@ -160,6 +161,9 @@ class RingComm:
     does inside ``shard_map``: each neighbour shift N * itemsize(wire) bytes
     and one message, each ``all_sum``/``all_max`` one collective of a
     scalar; whatever the layout (8 x 1 and 4 x 2 give the same ledger).
+    ``all_sum`` is an all-gather of the nodes' values and one sum in global
+    node order (the same bits at every layout); it counts as the one
+    collective the JAX package's ``psum`` is.
     Multiply by J for network totals.
     """
 
@@ -189,8 +193,11 @@ class RingComm:
         return self.rank * self.n_local
 
     def local(self, fn: Callable) -> Callable:
-        """Per-node math is written batched over the rank's L nodes."""
-        return fn
+        """Per-node math, batched over the rank's L nodes, in its
+        batch-invariant form (``rows=True``): its products summed along
+        contiguous rows, so a node's result has the same bits whatever the
+        number of nodes its rank holds (see ``_rowdot``)."""
+        return functools.partial(fn, rows=True)
 
     def _route(self, offsets: tuple):
         """Index tensors for shifting values by ``offsets``: (offset, node)
@@ -280,8 +287,20 @@ class RingComm:
         return out[0]
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of every node's value in x (L,) over the ring."""
-        return self._reduce(x, torch.sum, dist.ReduceOp.SUM)
+        """Sum of every node's value in x (L,) over the ring: the J values
+        all-gathered in global node order into one buffer (copied into it
+        at world 1) and summed by one ``torch.sum``, the same kernel on the
+        same J values at every layout, so the same bits; an all-reduce
+        would add the ranks' partial sums in its own order."""
+        if self.ledger is not None:
+            self.ledger.record_collective(x.element_size())
+        x = x.reshape(-1).contiguous()
+        parts = x.new_empty((self.world * x.numel(),))
+        if self.world > 1:
+            dist.all_gather_into_tensor(parts, x, group=self.group)
+        else:
+            parts.copy_(x)
+        return torch.sum(parts)
 
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """Max of every node's value in x (L,) over the ring."""
@@ -306,11 +325,67 @@ def _pinv_lam(lam: torch.Tensor, rel_thresh: float = 1e-5) -> torch.Tensor:
     return torch.where(keep, 1.0 / lam, torch.zeros_like(lam))
 
 
-def _sym_apply(vec: torch.Tensor, scale: torch.Tensor,
-               x: torch.Tensor) -> torch.Tensor:
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in an order set by its length alone: rows of
+    32 (zero-padded) summed, then those sums in rows of 32, and so on. A
+    ``torch.sum`` over contiguous rows of K picks its threads per row by
+    K and by the number of rows; with rows of 32 or fewer it takes the
+    row's length whatever the number of rows."""
+    while x.shape[-1] > 32:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
+        x = torch.sum(x.reshape(*x.shape[:-1], -1, 32), dim=-1)
+    return torch.sum(x, dim=-1)
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(J, P, K) x (J, Q, K) -> (J, P, Q): sum over k of a[j, p, k]
+    b[j, q, k], as products summed by ``_row_sum``. A node's sums then have
+    the same bits whatever J is, where cuBLAS picks a batched product's
+    kernel, and with it the order of each sum, by the batch count (checked
+    on the card at the probe ring's and the ring fit's shapes:
+    ``scripts/ring_batch_bits.py``). The products take a (J, P, Q, K)
+    temporary."""
+    return _row_sum(a.contiguous()[:, :, None] * b.contiguous()[:, None])
+
+
+def _sym_apply(vec: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
+               rows: bool = False) -> torch.Tensor:
     """V diag(scale) V^T x per node: vec (J, N, N), scale (J, N),
-    x (J, N, S)."""
-    return vec @ ((vec.transpose(1, 2) @ x) * scale[..., None])
+    x (J, N, S); ``rows``: through ``_rowdot``."""
+    if not rows:
+        return vec @ ((vec.transpose(1, 2) @ x) * scale[..., None])
+    y = _rowdot(vec.transpose(1, 2), x.transpose(1, 2)) * scale[..., None]
+    return _rowdot(vec, y.transpose(1, 2))
+
+
+def _kcross_apply(kcross: torch.Tensor, c: torch.Tensor,
+                  rows: bool = False) -> torch.Tensor:
+    """(J, S, N): sum over in-slots b of K(a, b) c_b per node; ``rows``:
+    through ``_rowdot`` on the (J, S*N, S*N) slot Gram."""
+    if not rows:
+        return torch.einsum("jabnm,jbm->jan", kcross, c)
+    j, s, _, n, _ = kcross.shape
+    k2 = kcross.permute(0, 1, 3, 2, 4).reshape(j, s * n, s * n)
+    return _rowdot(k2, c.reshape(j, 1, s * n)).reshape(j, s, n)
+
+
+def _znorm2(c: torch.Tensor, kc: torch.Tensor,
+            rows: bool = False) -> torch.Tensor:
+    """(J,): c^T K c per node; ``rows``: through ``_rowdot``."""
+    if not rows:
+        return torch.einsum("jan,jan->j", c, kc)
+    j = c.shape[0]
+    return _rowdot(c.reshape(j, 1, -1), kc.reshape(j, 1, -1))[:, 0, 0]
+
+
+def _res_part(mask: torch.Tensor, diff: torch.Tensor,
+              rows: bool = False) -> torch.Tensor:
+    """(J,): each node's masked squared consensus residual; ``rows``:
+    through ``_row_sum``."""
+    sq = mask[:, None, :] * diff * diff
+    if not rows:
+        return torch.sum(sq, dim=(1, 2))
+    return _row_sum(sq.reshape(sq.shape[0], -1))
 
 
 def inverse_denominators(lam: torch.Tensor,
@@ -361,7 +436,9 @@ def admm_step(ops: SolverOps, comm, state: AdmmState,
     n_slots = b.shape[2]
 
     # ---- message round 1: K^-1 B columns + alpha --------------------------
-    m1 = _sym_apply(ops.vec, _pinv_lam(ops.lam), b)          # (J, N, S)
+    # (comm.local: the products in their batch-invariant form on the ring,
+    # as batched products on the dense transport)
+    m1 = comm.local(_sym_apply)(ops.vec, _pinv_lam(ops.lam), b)  # (J, N, S)
     recv_m1 = comm.exchange(m1.transpose(1, 2))              # (J, S, N)
     recv_a = comm.exchange(alpha[:, None, :].expand(-1, n_slots, -1))
 
@@ -372,8 +449,8 @@ def admm_step(ops: SolverOps, comm, state: AdmmState,
         rho_bar = torch.clamp(rho_bar, min=1e-30)
     c = ((recv_m1 + rho_slots[..., None] * recv_a)
          / rho_bar[:, None, None]) * mask[..., None]         # (J, S, N)
-    kc = torch.einsum("jabnm,jbm->jan", ops.kcross, c)
-    znorm2 = torch.einsum("jan,jan->j", c, kc)
+    kc = comm.local(_kcross_apply)(ops.kcross, c)
+    znorm2 = comm.local(_znorm2)(c, kc)
     rs = torch.rsqrt(torch.clamp(znorm2, min=1e-30))
     if project == "sphere":
         scale = rs
@@ -396,7 +473,7 @@ def admm_step(ops: SolverOps, comm, state: AdmmState,
         (rho_slots * mask)[:, None, :])
     alpha_n = alpha_n[..., 0]
     diff = ka - g                                            # (J, N, S)
-    res_part = torch.sum(mask[:, None, :] * diff * diff, dim=(1, 2))
+    res_part = comm.local(_res_part)(mask, diff)
     if faulty:
         # A node that heard nobody this iteration has no consensus
         # information: den <= 0 zeroes every direction and the naive update

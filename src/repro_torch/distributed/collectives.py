@@ -11,6 +11,9 @@ first and second moment is a plain local tensor, the process's shard under
   * ``gather`` (FSDP over the batch axes): all-gather a weight's
     "data"-sharded dim on use; backward: reduce-scatter (sum), so each
     rank keeps its shard's gradient;
+  * ``gather_replica``: all-gather over "model" for a layer that every
+    "model" rank computes whole (mamba's); backward: the rank's slice of
+    the gradient, unsummed (each rank's is already the whole one);
   * ``copy_to`` (Megatron's "f"): identity forward, all-reduce (sum)
     backward; it goes where a tensor replicated over "model" enters
     per-shard work: before the column-parallel products (q/k/v heads,
@@ -46,13 +49,6 @@ import torch.distributed as dist
 from .sharding import MeshAxes, Spec, axes_of, shard_index
 
 MODEL = "model"
-
-# all_gather_into_tensor / reduce_scatter_tensor are deprecated in torch 2.13
-# for the *_single names, which older releases do not have
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
 
 
 class Mesh:
@@ -130,7 +126,7 @@ def all_gather(x: torch.Tensor, dim: int, mesh: Mesh,
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
     mesh.count("all_gather", out)
-    _all_gather(out, xt, group=mesh.group(axes))
+    dist.all_gather_into_tensor(out, xt, group=mesh.group(axes))
     return out.movedim(0, dim)
 
 
@@ -144,7 +140,8 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh: Mesh,
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     mesh.count("reduce_scatter", xt)
-    _reduce_scatter(out, xt, op=dist.ReduceOp.SUM, group=mesh.group(axes))
+    dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
+                               group=mesh.group(axes))
     return out.movedim(0, dim)
 
 
@@ -182,6 +179,24 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         return reduce_scatter(g, ctx.dim, ctx.mesh, ctx.axes), None, None, \
             None
+
+
+class _GatherSlice(torch.autograd.Function):
+    """Forward: all-gather dim ``dim`` over ``axes``. Backward: this rank's
+    slice of the gradient along it, unsummed. For a weight whose layer
+    every rank on ``axes`` computes whole from the same inputs: each rank's
+    gradient of the gathered weight is then the whole one, so a summing
+    backward (``_Gather``'s) would multiply it by the axes' size."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.dim, ctx.size, ctx.index = dim, x.shape[dim], mesh.index(axes)
+        return all_gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -241,6 +256,13 @@ class _ScaleGrad(torch.autograd.Function):
 
 def gather(x, dim: int, mesh: Mesh, axes: MeshAxes):
     return x if mesh.size(axes) == 1 else _Gather.apply(x, dim, mesh, axes)
+
+
+def gather_replica(x, dim: int, mesh: Mesh, axes: MeshAxes):
+    """``x`` all-gathered along ``dim`` over ``axes`` for work that every
+    rank on them repeats whole (backward: the rank's slice, unsummed)."""
+    return x if mesh.size(axes) == 1 else _GatherSlice.apply(x, dim, mesh,
+                                                             axes)
 
 
 def copy_to(x, mesh: Mesh, axes: MeshAxes = MODEL):
@@ -315,6 +337,22 @@ class Shards:
             out[k] = v
         return out
 
+    def gather_whole(self, params: Dict[str, torch.Tensor]):
+        """Every leaf whole on every rank: ``gather``'s FSDP gathers, and
+        the dims split over "model" gathered too, with the unsummed
+        backward of ``gather_replica`` (for a layer that cannot be
+        computed split, which every "model" rank then computes whole)."""
+        out = {}
+        for k, v in params.items():
+            for d, e in enumerate(self.specs[k]):
+                axes = axes_of(e)
+                if MODEL in axes:
+                    v = gather_replica(v, d, self.mesh, e)
+                elif axes:
+                    v = gather(v, d, self.mesh, e)
+            out[k] = v
+        return out
+
     def f(self, x):
         return copy_to(x, self.mesh)
 
@@ -329,5 +367,6 @@ class Shards:
 
 
 __all__ = ["MODEL", "Mesh", "Shards", "all_gather", "all_reduce_",
-           "batch_axes_of", "copy_to", "gather", "gather_full", "mean_all",
+           "batch_axes_of", "copy_to", "gather", "gather_full",
+           "gather_replica", "mean_all",
            "reduce_from", "reduce_scatter", "scale_grad"]

@@ -1,6 +1,7 @@
 """The LM substrate's models (counterpart of ``repro.models``): the decoder
-families (dense, MoE, VLM backbone) with GQA, SWA, MLA and MoE layers, in
-plain PyTorch, on one device or (training) sharded over a device mesh."""
+families (dense, MoE, VLM backbone) with GQA, SWA, MLA and MoE layers, the
+mamba families (ssm, hybrid) and the encoder-decoder (audio), in plain
+PyTorch, on one device or (training) sharded over a device mesh."""
 
 from .convert import params_from_jax
 from .model import Model, build_model

@@ -222,6 +222,11 @@ def local_batch(batch: Dict[str, torch.Tensor], mesh):
     return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}, False
 
 
+def positions_of(b: int, s: int, start: int, device) -> torch.Tensor:
+    """(b, s) absolute positions start .. start + s - 1 of every row."""
+    return (start + torch.arange(s, device=device))[None].expand(b, s)
+
+
 def constrain_act(x: torch.Tensor, mesh) -> torch.Tensor:
     """The JAX package pins activations to (batch over the data axes,
     replicated) unless the batch does not divide; here each rank's
@@ -297,9 +302,17 @@ class ScanBlock:
         """carry -> loop over the leading 'layers' dim of every stacked
         param, each layer under ``remat`` (see ``remat_block``); returns
         (carry, the per-layer outputs stacked, or None)."""
+        return ScanBlock.run_layers(block_fn, layer_slices(stacked), carry,
+                                    remat)
+
+    @staticmethod
+    def run_layers(block_fn, layers: List[Params], carry,
+                   remat: str = "full"):
+        """``run`` over a list of layer dicts (``layer_slices``' or a run
+        of them): the JAX package's scan over a slice of the stack."""
         fn = remat_block(block_fn, remat)
         outs = []
-        for layer in layer_slices(stacked):
+        for layer in layers:
             carry, out = fn(layer, carry)
             outs.append(out)
         if not outs or outs[0] is None:

@@ -19,8 +19,9 @@ split over "model", the lookup takes the rank's vocab slice, masked, then
 "g"; the logits are vocab-parallel and so is their cross-entropy (the
 row max and the exp-sum all-reduced over "model"). The loss is the global
 token mean: the masked sum and the count are summed over the batch axes
-(not the per-rank means: a VLM batch's masked counts differ by rank).
-Decode over a mesh is not ported (ROADMAP queue A).
+(not the per-rank means: a VLM batch's masked counts differ by rank);
+``token_loss`` is that tail, which the ssm, hybrid and audio families'
+losses share. Decode over a mesh is not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
 from ..distributed import collectives as coll
-from ..distributed.collectives import Shards
-from ..distributed.sharding import tree_specs
 from .attention import (KVCache, MLACache, gqa_forward, init_gqa, init_mla,
                         mla_decode, mla_forward)
 from .common import (ParamCollector, ScanBlock, StackedCollector,
@@ -89,13 +88,6 @@ def init_decoder_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
 # ----------------------------------------------------------------------
 # blocks
 # ----------------------------------------------------------------------
-
-def model_shards(cfg: ArchConfig, mesh, rules) -> Shards:
-    """The layout of the model's parameters on ``mesh`` under ``rules``,
-    from its meta-device tree."""
-    params, axes = init_decoder_lm(cfg, None)
-    return Shards(mesh, tree_specs(axes, params, rules, mesh))
-
 
 def _moe(p, cfg, h, mesh, shards=None):
     mp = slice_layer(p, "moe")
@@ -248,6 +240,23 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor, shards=None,
     return lse - shards.g(torch.where(inside, gold, gold.new_zeros(())))
 
 
+def gather_head(params, shards):
+    """``params`` with the embedding table (and the head) gathered over
+    their FSDP axes, once for the lookup and the logits (as it is, without
+    a mesh)."""
+    if shards is None:
+        return params
+    return dict(params, **shards.gather(
+        {k: params[k] for k in ("embed", "lm_head") if k in params}))
+
+
+def no_mesh_decode(mesh) -> None:
+    """Decode and prefill run on one device: over a mesh they raise."""
+    if mesh is not None:
+        raise NotImplementedError("decode over a mesh is not ported yet "
+                                  "(ROADMAP queue A)")
+
+
 def lm_loss(params, cfg: ArchConfig, batch, mesh=None, shards=None):
     """Next-token CE, masked to text positions. Returns (loss, metrics);
     differentiable, with each stacked layer under ``cfg.remat``. Over
@@ -261,16 +270,24 @@ def lm_loss(params, cfg: ArchConfig, batch, mesh=None, shards=None):
         raise ValueError("lm_loss over a mesh needs the params' layout "
                          "(shards=)")
     batch, shared = local_batch(batch, mesh)
-    if shards is not None:
-        # the table (and head) once for the lookup and the logits
-        params = dict(params, **shards.gather(
-            {k: params[k] for k in ("embed", "lm_head") if k in params}))
+    params = gather_head(params, shards)
     x, positions = _embed_inputs(params, cfg, batch, shards)
     x, aux = _run_layers(params, cfg, x, positions, mesh, shards)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     f = cfg.frontend_seq if (cfg.frontend != "none"
                              and "frontend" in batch) else 0
     x = x[:, f:]                                   # text region only
+    loss = token_loss(params, cfg, x, batch, shards, shared)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux}
+
+
+def token_loss(params, cfg: ArchConfig, x, batch, shards=None,
+               shared: bool = False) -> torch.Tensor:
+    """The mean next-token cross-entropy of the final-normed hidden states
+    ``x`` against ``batch["labels"]`` (masked by ``batch["loss_mask"]``
+    where there is one), through the output head; over a mesh the global
+    token mean (see ``lm_loss``; ``shared``: ``local_batch``'s flag)."""
     logits = _logits(params, cfg, x, shards).float()
     targets = batch["labels"].long()
     mask = batch.get("loss_mask")
@@ -293,8 +310,7 @@ def lm_loss(params, cfg: ArchConfig, batch, mesh=None, shards=None):
         # every rank ran the whole batch: their summed gradients count it
         # once
         loss = coll.scale_grad(loss, 1.0 / shards.dp)
-    total = loss + 0.01 * aux
-    return total, {"loss": loss, "aux_loss": aux}
+    return loss
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -321,9 +337,7 @@ def lm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
     position, new cache). cache_len: an int (or a 0-d tensor). The cache
     passed in is left as it was. One device: decode over a mesh is not
     ported (ROADMAP queue A)."""
-    if mesh is not None:
-        raise NotImplementedError("decode over a mesh is not ported yet "
-                                  "(ROADMAP queue A)")
+    no_mesh_decode(mesh)
     cl = int(cache_len)
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape

@@ -1,0 +1,334 @@
+"""Mamba state-space layers (counterpart of ``repro.models.mamba``).
+
+mamba1 (falcon-mamba): selective scan h_t = exp(dt A) h_{t-1} + dt B_t x_t,
+y_t = C_t h_t + D x_t. Time is processed in chunks, as in the JAX package:
+within a chunk an inclusive scan by log-step doubling (Hillis-Steele, out
+of place, so autograd keeps each level when a layer is recomputed), and the
+(B, d_inner, N) state carried across chunks in a loop. The scan's order of
+products differs from ``jax.lax.associative_scan``'s by fp32 rounding only.
+Live memory is one chunk of states: (B, chunk, d_inner, N) fp32, 33.5 MB a
+batch row at falcon-mamba-7b's width.
+
+mamba2 (zamba2): the chunked SSD algorithm, an attention-like quadratic
+term within a chunk and the low-rank state passed between chunks. The
+intra-chunk decay is ``exp(where(causal, seg, -inf))``: above the diagonal
+``seg`` is positive and its ``exp`` can overflow, where the JAX package's
+``where(causal, exp(seg), 0)`` would then give a backward of 0 * inf; the
+forward values are the same.
+
+Both have O(1)-state decode steps (the last d_conv - 1 pre-conv inputs and
+the ssm state). The depthwise conv sums its taps in one order in the
+prefill and the decode step, so both give a position the same bits. Every
+product of token rows with a weight goes through ``common.tok_einsum``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..device import DeviceLike
+from .common import ParamCollector, model_device, rms_norm, tok_einsum
+
+
+def _chunk_of(chunk: int, length: int) -> int:
+    """The chunk length: ``chunk`` (at most ``length``), halved until it
+    divides ``length``."""
+    ck = min(chunk, length)
+    while length % ck:
+        ck //= 2
+    return ck
+
+
+# ----------------------------------------------------------------------
+# shared: causal depthwise conv (explicit shifts; decode keeps the tail)
+# ----------------------------------------------------------------------
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, L, C); w (K, C) depthwise taps (tap k multiplies x[t-K+1+k])."""
+    k, length = w.shape[0], x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        shift = k - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, :length]
+        out = out + xi * w[i][None, None, :]
+    if bias is not None:
+        out = out + bias[None, None, :]
+    return out
+
+
+def _conv_step(state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+               bias: Optional[torch.Tensor] = None):
+    """state (B, K-1, C) past inputs; x_t (B, C). Returns (y_t, new_state);
+    the taps summed in ``_causal_conv``'s order."""
+    full = torch.cat([state, x_t[:, None]], dim=1)             # (B, K, C)
+    y = torch.zeros_like(full[:, 0])
+    for i in range(w.shape[0]):
+        y = y + full[:, i] * w[i][None, :]
+    if bias is not None:
+        y = y + bias[None, :]
+    return y, full[:, 1:]
+
+
+def _conv_tail(raw: torch.Tensor, km1: int) -> torch.Tensor:
+    """The decode state's conv part: the last ``km1`` pre-conv inputs,
+    left-padded with zeros when the prompt is shorter."""
+    tail = raw[:, -km1:]
+    return F.pad(tail, (0, 0, max(km1 - raw.shape[1], 0), 0))
+
+
+# ----------------------------------------------------------------------
+# mamba1
+# ----------------------------------------------------------------------
+
+class Mamba1State(NamedTuple):
+    conv: torch.Tensor    # (B, K-1, d_inner)
+    ssm: torch.Tensor     # (B, d_inner, N)
+
+
+def init_mamba1(col: ParamCollector, cfg: ArchConfig, prefix: str = "mamba"):
+    e, di, n, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    col.param(f"{prefix}/w_in", (e, 2 * di), ("embed", "inner"))
+    col.param(f"{prefix}/conv_w", (cfg.d_conv, di), ("conv", "inner"),
+              scale=0.5)
+    col.param(f"{prefix}/conv_b", (di,), ("inner",), init="zeros")
+    col.param(f"{prefix}/w_x", (di, dtr + 2 * n), ("inner", None))
+    col.param(f"{prefix}/w_dt", (dtr, di), (None, "inner"))
+    col.param(f"{prefix}/dt_bias", (di,), ("inner",), init="zeros")
+    col.param(f"{prefix}/a_log", (di, n), ("inner", "state"), init="zeros")
+    col.param(f"{prefix}/d", (di,), ("inner",), init="ones")
+    col.param(f"{prefix}/w_out", (di, e), ("inner", "embed"))
+
+
+def _mamba1_inputs(p, cfg: ArchConfig, x: torch.Tensor):
+    """(u, z): the input projection split into the conv branch and the
+    gate."""
+    xz = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
+    u, z = xz.chunk(2, dim=-1)
+    return u, z
+
+
+def _mamba1_ssm_params(p, cfg: ArchConfig, u: torch.Tensor):
+    """(dt, A, B, C) of the selective scan, in fp32."""
+    dtr, n = cfg.dt_rank, cfg.ssm_state
+    proj = tok_einsum("bli,ir->blr", u, p["w_x"].to(u.dtype))
+    dt_in, b_in, c_in = proj.split([dtr, n, n], dim=-1)
+    dt = F.softplus(
+        tok_einsum("blr,ri->bli", dt_in, p["w_dt"].to(u.dtype)).float()
+        + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())                # (di, N), negative
+    return dt, a, b_in.float(), c_in.float()
+
+
+def _scan_chunk(adt: torch.Tensor, bx: torch.Tensor):
+    """Inclusive scan along dim 1 of h_t = adt_t h_{t-1} + bx_t from a zero
+    state, by log-step doubling: (the decay products from each chunk start,
+    the states). Each level makes new tensors (out of place)."""
+    a, b = adt, bx
+    d, length = 1, adt.shape[1]
+    while d < length:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def mamba1_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                   return_state: bool = False):
+    """x (B, L, E) -> (B, L, E). Chunked scan over time. With return_state:
+    also returns Mamba1State for decode continuation (the parallel-prefill
+    path)."""
+    b, length, _ = x.shape
+    u_raw, z = _mamba1_inputs(p, cfg, x)
+    u = F.silu(_causal_conv(u_raw, p["conv_w"].to(x.dtype),
+                            p["conv_b"].to(x.dtype)))
+    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u)
+    ck = _chunk_of(cfg.ssm_chunk, length)
+    uf = u.float()
+    h = torch.zeros((b, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for lo in range(0, length, ck):
+        sl = slice(lo, lo + ck)
+        dt_k, u_k, b_k, c_k = dt[:, sl], uf[:, sl], b_in[:, sl], c_in[:, sl]
+        adt = torch.exp(dt_k[..., None] * a[None, None])      # (B,ck,di,N)
+        bx = (dt_k * u_k)[..., None] * b_k[:, :, None, :]
+        a_acc, h_in = _scan_chunk(adt, bx)
+        hs = h_in + a_acc * h[:, None]                       # carried state
+        ys.append(torch.einsum("bldn,bln->bld", hs, c_k))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    y = y + uf * p["d"].float()[None, None]
+    y = y.to(x.dtype) * F.silu(z)
+    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    if return_state:
+        return out, Mamba1State(_conv_tail(u_raw, cfg.d_conv - 1), h)
+    return out
+
+
+def mamba1_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba1State):
+    """Single-token step: x (B, 1, E) -> (y (B, 1, E), new state)."""
+    u, z = _mamba1_inputs(p, cfg, x)
+    u1, conv_state = _conv_step(state.conv, u[:, 0],
+                                p["conv_w"].to(x.dtype),
+                                p["conv_b"].to(x.dtype))
+    u1 = F.silu(u1)[:, None]                               # (B, 1, di)
+    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u1)
+    u1 = u1[:, 0].float()
+    adt = torch.exp(dt[:, 0, :, None] * a[None])           # (B, di, N)
+    bx = (dt[:, 0] * u1)[..., None] * b_in[:, 0, None, :]
+    h = state.ssm * adt + bx
+    y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])
+    y = y + u1 * p["d"].float()[None]
+    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
+    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    return out, Mamba1State(conv_state, h)
+
+
+def mamba1_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                      device: DeviceLike = "cuda") -> Mamba1State:
+    device = model_device(device)
+    return Mamba1State(
+        conv=torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=device))
+
+
+# ----------------------------------------------------------------------
+# mamba2 (SSD) — zamba2 backbone
+# ----------------------------------------------------------------------
+
+class Mamba2State(NamedTuple):
+    conv: torch.Tensor    # (B, K-1, d_inner + 2*N)
+    ssm: torch.Tensor     # (B, H, hd, N)
+
+
+def init_mamba2(col: ParamCollector, cfg: ArchConfig, prefix: str = "mamba"):
+    e, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    conv_dim = di + 2 * n
+    col.param(f"{prefix}/w_in", (e, 2 * di + 2 * n + nh), ("embed", "inner"))
+    col.param(f"{prefix}/conv_w", (cfg.d_conv, conv_dim), ("conv", None),
+              scale=0.5)
+    col.param(f"{prefix}/conv_b", (conv_dim,), (None,), init="zeros")
+    col.param(f"{prefix}/dt_bias", (nh,), (None,), init="zeros")
+    col.param(f"{prefix}/a_log", (nh,), (None,), init="zeros")
+    col.param(f"{prefix}/d", (nh,), (None,), init="ones")
+    col.param(f"{prefix}/norm_w", (di,), ("inner",), init="ones")
+    col.param(f"{prefix}/w_out", (di, e), ("inner", "embed"))
+
+
+def _mamba2_split(p, cfg: ArchConfig, x: torch.Tensor):
+    """(z, xbc, dt): the gate, the conv branch (x, B, C) and dt (B, L,
+    heads)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    zxbcdt = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
+    z, xbc, dt = zxbcdt.split([di, di + 2 * n, di // cfg.ssm_head_dim],
+                              dim=-1)
+    return z, xbc, dt
+
+
+def _ssd_chunked(xh, b_in, c_in, dt, a, chunk: int, h0=None):
+    """SSD scan. xh (B,L,H,hd); b_in/c_in (B,L,N); dt (B,L,H) (softplus'd);
+    a (H,) negative. Returns (y (B,L,H,hd), final state (B,H,hd,N))."""
+    b, length, h, hd = xh.shape
+    n = b_in.shape[-1]
+    ck = _chunk_of(chunk, length)
+    xf = xh.float()
+    causal = torch.ones((ck, ck), dtype=torch.bool,
+                        device=xh.device).tril()[None, :, :, None]
+    state = h0 if h0 is not None else torch.zeros(
+        (b, h, hd, n), dtype=torch.float32, device=xh.device)
+    ys = []
+    for lo in range(0, length, ck):
+        sl = slice(lo, lo + ck)
+        x_k, b_k, c_k, dt_k = xf[:, sl], b_in[:, sl], c_in[:, sl], dt[:, sl]
+        da = dt_k * a[None, None]                        # (B,ck,H) log-decay
+        cum = torch.cumsum(da, dim=1)
+        # intra-chunk (attention-like) term
+        seg = cum[:, :, None, :] - cum[:, None, :, :]    # (B,ck,ck,H) l-m
+        decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+        cb = torch.einsum("bln,bmn->blm", c_k, b_k)      # (B,ck,ck)
+        w = cb[..., None] * decay * dt_k[:, None, :, :]  # (B,l,m,H)
+        y = torch.einsum("blmh,bmhd->blhd", w, x_k)
+        # inter-chunk: contribution of the carried state
+        y = y + torch.einsum("bln,bhdn->blhd", c_k, state) \
+            * torch.exp(cum)[..., None]
+        # next state: decay the whole chunk + accumulate its inputs
+        rev = cum[:, -1:, :] - cum                       # decay to chunk end
+        contrib = torch.einsum("blhd,bln->bhdn",
+                               x_k * (torch.exp(rev) * dt_k)[..., None], b_k)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + contrib
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    return y, state
+
+
+def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
+                   return_state: bool = False):
+    b, length, _ = x.shape
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // hd
+    z, xbc_raw, dt = _mamba2_split(p, cfg, x)
+    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"].to(x.dtype),
+                              p["conv_b"].to(x.dtype)))
+    xs, b_in, c_in = xbc.split([di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+    xh = xs.reshape(b, length, nh, hd)
+    y, ssm_state = _ssd_chunked(xh, b_in.float(), c_in.float(), dt, a,
+                                cfg.ssm_chunk)
+    y = y + xh.float() * p["d"].float()[None, None, :, None]
+    y = y.reshape(b, length, di).to(x.dtype)
+    # gated RMSNorm (mamba2)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    if return_state:
+        return out, Mamba2State(_conv_tail(xbc_raw, cfg.d_conv - 1),
+                                ssm_state)
+    return out
+
+
+def mamba2_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba2State):
+    b = x.shape[0]
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // hd
+    z, xbc, dt = _mamba2_split(p, cfg, x)
+    xbc1, conv_state = _conv_step(state.conv, xbc[:, 0],
+                                  p["conv_w"].to(x.dtype),
+                                  p["conv_b"].to(x.dtype))
+    xs, b_in, c_in = F.silu(xbc1).split([di, n, n], dim=-1)
+    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"].float())   # (B, nh)
+    a = -torch.exp(p["a_log"].float())
+    xh = xs.reshape(b, nh, hd).float()
+    decay = torch.exp(dt1 * a[None])                            # (B, nh)
+    h = state.ssm * decay[..., None, None] + torch.einsum(
+        "bhd,bn->bhdn", xh * dt1[..., None], b_in.float())
+    y = torch.einsum("bhdn,bn->bhd", h, c_in.float())
+    y = y + xh * p["d"].float()[None, :, None]
+    y = y.reshape(b, di).to(x.dtype) * F.silu(z[:, 0])
+    y = rms_norm(y, p["norm_w"], cfg.norm_eps)[:, None]
+    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    return out, Mamba2State(conv_state, h)
+
+
+def mamba2_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                      device: DeviceLike = "cuda") -> Mamba2State:
+    device = model_device(device)
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    nh = cfg.d_inner // cfg.ssm_head_dim
+    return Mamba2State(
+        conv=torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=device))
+
+
+__all__ = ["Mamba1State", "Mamba2State", "init_mamba1", "init_mamba2",
+           "mamba1_decode", "mamba1_forward", "mamba1_init_state",
+           "mamba2_decode", "mamba2_forward", "mamba2_init_state"]

@@ -6,9 +6,10 @@
     cache = model.init_cache(batch_size, max_len)
     logits, cache = model.decode_step(params, cache, tokens, cache_len)
 
-The decoder families (dense, moe, vlm: 7 of the 10 configs) are ported.
-``model.init(None)`` builds on the meta device: shapes, dtypes and axes,
-no memory. ``build_model(cfg, mesh=mesh)`` keeps the training mesh (a
+Every family of the 10 configs is ported: the decoders (dense, moe, vlm),
+ssm (falcon-mamba), hybrid (zamba2) and audio (seamless-m4t, an
+encoder-decoder). ``model.init(None)`` builds on the meta device: shapes,
+dtypes and axes, no memory. ``build_model(cfg, mesh=mesh)`` keeps the training mesh (a
 ``repro_torch.distributed.Mesh``) and passes it through, as the JAX
 ``Model`` does. The mesh and its rules live on the model alone:
 ``model.with_mesh(mesh, rules)`` (rules default: ``default_rules``) is the
@@ -26,16 +27,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
-from ..distributed.sharding import default_rules
-from . import lm
+from ..distributed.collectives import Shards
+from ..distributed.sharding import default_rules, tree_specs
+from . import encdec, hybrid, lm, ssm_lm
 from .common import model_device
-
-# ROADMAP queue A: the families whose modules are not ported yet
-NOT_PORTED = {
-    "ssm": "models/{mamba,ssm_lm}.py",
-    "hybrid": "models/{mamba,hybrid}.py",
-    "audio": "models/encdec.py",
-}
 
 
 @dataclasses.dataclass
@@ -60,9 +55,12 @@ class Model:
         return self._init(self.cfg, key, mesh=self.mesh, place=place)
 
     def shards(self):
-        """The parameters' layout on the mesh (None without one)."""
+        """The parameters' layout on the mesh (None without one), from the
+        family's own tree on the meta device."""
         if self.mesh is not None and self._shards is None:
-            self._shards = lm.model_shards(self.cfg, self.mesh, self.rules)
+            params, axes = self._init(self.cfg, None)
+            self._shards = Shards(self.mesh, tree_specs(
+                axes, params, self.rules, self.mesh))
         return self._shards
 
     def with_mesh(self, mesh, rules=None) -> "Model":
@@ -106,12 +104,23 @@ def build_model(cfg: ArchConfig, mesh=None,
     fam = cfg.family
     if mesh is not None and device == "cuda":
         device = mesh.device
+    dev = model_device(device)
     if fam in ("dense", "moe", "vlm"):
-        return Model(cfg, None, model_device(device), lm.init_decoder_lm,
-                     lm.lm_loss, lm.init_kv_cache,
-                     lm.lm_decode_step).with_mesh(mesh)
-    if fam in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam} family is not ported yet (ROADMAP "
-            f"queue A, {NOT_PORTED[fam]})")
-    raise ValueError(f"unknown family: {fam}")
+        model = Model(cfg, None, dev, lm.init_decoder_lm, lm.lm_loss,
+                      lm.init_kv_cache, lm.lm_decode_step)
+    elif fam == "ssm":
+        model = Model(cfg, None, dev, ssm_lm.init_ssm_lm, ssm_lm.ssm_lm_loss,
+                      ssm_lm.ssm_init_cache, ssm_lm.ssm_decode_step,
+                      _prefill=ssm_lm.ssm_prefill)
+    elif fam == "hybrid":
+        model = Model(cfg, None, dev, hybrid.init_hybrid_lm,
+                      hybrid.hybrid_lm_loss, hybrid.hybrid_init_cache,
+                      hybrid.hybrid_decode_step,
+                      _prefill=hybrid.hybrid_prefill)
+    elif fam == "audio":
+        model = Model(cfg, None, dev, encdec.init_encdec, encdec.encdec_loss,
+                      encdec.encdec_init_cache, encdec.encdec_decode_step,
+                      _prefill=encdec.encdec_prefill)
+    else:
+        raise ValueError(f"unknown family: {fam}")
+    return model.with_mesh(mesh)

@@ -35,7 +35,11 @@ otherwise. Cases and tolerances:
     loss mask whose counts differ by rank) on (2, 2) against the
     single-device step, and the fp32 mixtral smoke config (SWA, experts)
     on (2, 2) against the JAX package's (2, 2) GSPMD step (the MoE aux
-    loss is each shard's, averaged);
+    loss is each shard's, averaged); the fp32 smoke configs of the ssm,
+    hybrid and audio families at (2, 2) and (4, 1), and falcon-mamba at
+    (1, 4) (d_inner split four ways, each mamba layer gathered whole),
+    against the single-device JAX step (one per config, made in the test
+    process) and the port's one-process step;
   * ``spec_for`` equal to the JAX function for every leaf of the 10 full
     configs at (16, 16), (2, 16, 16), (4, 2) and (1, 1), on shape stubs;
   * ``global_norm`` on a mixed sharded and replicated tree at 1e-6
@@ -77,7 +81,7 @@ from repro_torch.models import build_model
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 TESTS = Path(__file__).resolve().parent
-RANK_TIMEOUT_S = 240
+RANK_TIMEOUT_S = 360
 
 # tests/helpers/check_dp_train.py's two problems
 DP_KW = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -103,7 +107,24 @@ GRAD_CASES = {
     "deepseek": ((1, 4), "deepseek-v2-236b", 2, 8, "single"),
     "internvl": ((2, 2), "internvl2-76b", 4, 8, "single"),
     "mixtral": ((2, 2), "mixtral-8x22b", 4, 8, "sharded"),
+    # the ssm, hybrid and audio families (fp32 smoke): mamba's leaves
+    # gathered whole over "model" at (2, 2) and (1, 4)
+    "falcon22": ((2, 2), "falcon-mamba-7b", 4, 8, "single"),
+    "falcon41": ((4, 1), "falcon-mamba-7b", 4, 8, "single"),
+    "falcon14": ((1, 4), "falcon-mamba-7b", 4, 8, "single"),
+    "zamba22": ((2, 2), "zamba2-1.2b", 4, 8, "single"),
+    "zamba41": ((4, 1), "zamba2-1.2b", 4, 8, "single"),
+    "seamless22": ((2, 2), "seamless-m4t-large-v2", 4, 8, "single"),
+    "seamless41": ((4, 1), "seamless-m4t-large-v2", 4, 8, "single"),
 }
+FAMILY_CASES = [c for c in GRAD_CASES
+                if c.startswith(("falcon", "zamba", "seamless"))]
+
+
+def problem_of(case) -> str:
+    """The weights-and-batch file of a GRAD_CASES case: a family's cases
+    share their config's (one JAX reference per config)."""
+    return GRAD_CASES[case][1] if case in FAMILY_CASES else case
 PROBE_KW = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=2,
                 n_kv_heads=1, d_ff=96, vocab=256, head_dim=24,
                 tie_embeddings=True, remat="none", param_dtype="float32",
@@ -170,12 +191,17 @@ def make_problems(root: Path) -> None:
              p={k[len("moe/"):]: np_of(v) for k, v in col.params.items()},
              b={"x": x})
     for i, case in enumerate(GRAD_CASES):
+        if (root / f"{problem_of(case)}.npz").exists():
+            continue
         gcfg = grad_cfg(case)
         _, _, rows, seq, _ = GRAD_CASES[case]
         w, _ = build_model(gcfg, device="cpu").init(20 + i)
         b = TokenStream(gcfg.vocab, rows, seq, seed=i,
                         device="cpu").next_numpy()
-        if gcfg.frontend != "none":
+        if gcfg.family == "audio":
+            b["frames"] = np.random.default_rng(i).normal(0, 0.02, size=(
+                rows, gcfg.enc_seq, gcfg.d_model)).astype(np.float32)
+        elif gcfg.frontend != "none":
             rng = np.random.default_rng(i)
             b["frontend"] = rng.normal(0, 0.02, size=(
                 rows, gcfg.frontend_seq, gcfg.d_model)).astype(np.float32)
@@ -184,8 +210,8 @@ def make_problems(root: Path) -> None:
             mask[0, :5] = 0
             mask[rows - 1, 2:] = 0
             b["loss_mask"] = mask
-        save(root / f"{case}.npz", p={k: np_of(v) for k, v in w.items()},
-             b=b)
+        save(root / f"{problem_of(case)}.npz",
+             p={k: np_of(v) for k, v in w.items()}, b=b)
     pcfg = TArch(**PROBE_KW)
     w, _ = build_model(pcfg, device="cpu").init(3)
     toks = np.random.default_rng(0).integers(
@@ -252,7 +278,7 @@ def _grads(case, root: Path, mesh):
     """Loss and gradients (gathered whole) of a GRAD_CASES case."""
     from repro_torch.train.loop import loss_and_grads, sum_replicated_grads
     cfg = grad_cfg(case)
-    z = load(root / f"{case}.npz")
+    z = load(root / f"{problem_of(case)}.npz")
     model = build_model(cfg, mesh=mesh, device="cpu")
     sh = model.shards()
     total, metrics, grads = loss_and_grads(
@@ -545,8 +571,11 @@ def jax_main(root: str) -> None:
         y_ref, _ = jmoe_ref(p, mcfg, x)
         res[f"{case}_aux"] = float(aux)
         np.savez(out / f"{case}.npz", y=np.asarray(y), y_ref=np.asarray(y_ref))
-    # loss and grads
+    # loss and grads (the families' single-device references are made in
+    # the test process: family_reference)
     for case, (shape, kw, _, _, ref) in GRAD_CASES.items():
+        if case in FAMILY_CASES:
+            continue
         z = load(root / f"{case}.npz")
         gcfg = (dataclasses.replace(jget(kw, smoke=True),
                                     param_dtype="float32",
@@ -745,16 +774,68 @@ def test_moe_forward_matches_jax_shard_map(runs, case):
             np.abs(got - want).max() + 1e-9)
 
 
+_FAMILY_REFS = {}
+
+
+def family_reference(root: Path, problem: str):
+    """(losses, grads) of a family config's problem: the JAX package's
+    single-device ``value_and_grad``, made once in this process (beside
+    ``jax_main``'s subprocess, whose share it would lengthen)."""
+    if problem not in _FAMILY_REFS:
+        import jax
+        import jax.numpy as jnp
+        from repro.configs import get_config as jget
+        from repro.models import build_model as jbuild
+        z = load(root / f"{problem}.npz")
+        model = jbuild(dataclasses.replace(jget(problem, smoke=True),
+                                           param_dtype="float32",
+                                           compute_dtype="float32"))
+        batch = {k: jnp.asarray(v) for k, v in z["b"].items()}
+        (total, metrics), grads = jax.jit(jax.value_and_grad(
+            lambda p: model.loss(p, batch), has_aux=True))(
+            {k: jnp.asarray(v) for k, v in z["p"].items()})
+        _FAMILY_REFS[problem] = (
+            dict(loss=float(metrics["loss"]), total=float(total)),
+            {k: np.asarray(v) for k, v in grads.items()})
+    return _FAMILY_REFS[problem]
+
+
 @pytest.mark.parametrize("case", list(GRAD_CASES))
 def test_loss_and_grads_match_jax(runs, case):
     root, _ = runs
-    got, want = _res(root, 4)[case], _res(root, "jax")[case]
+    got = _res(root, 4)[case]
+    if case in FAMILY_CASES:
+        want, jg = family_reference(root, problem_of(case))
+    else:
+        want = _res(root, "jax")[case]
+        jg = load(root / "jax" / f"{case}.npz")["g"]
     for k in ("loss", "total"):
         assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got, want)
     g = load(root / "world4" / f"{case}.npz")["g"]
-    jg = load(root / "jax" / f"{case}.npz")["g"]
     assert set(g) == set(jg)
     for k, v in jg.items():
+        scale = max(float(np.abs(v).max()), 1e-30)
+        err = float(np.abs(g[k] - v).max())
+        assert err <= 1e-4 * scale, (case, k, err, scale)
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_family_grads_match_one_process(runs, case):
+    """The ssm, hybrid and audio families' step over the mesh against the
+    port's own step in one process on the same weights and batch: loss at
+    1e-5 relative, each key's gradient at 1e-4 * max|g|."""
+    from repro_torch.train.loop import loss_and_grads
+    root, _ = runs
+    z = load(root / f"{problem_of(case)}.npz")
+    cfg = grad_cfg(case)
+    total, metrics, grads = loss_and_grads(
+        build_model(cfg, device="cpu"), _tensors(z["p"]), _tensors(z["b"]))
+    got = _res(root, 4)[case]
+    assert abs(got["loss"] - float(metrics["loss"])) <= \
+        1e-5 * abs(float(metrics["loss"])), (got, float(metrics["loss"]))
+    g = load(root / "world4" / f"{case}.npz")["g"]
+    for k, v in grads.items():
+        v = np_of(v)
         scale = max(float(np.abs(v).max()), 1e-30)
         err = float(np.abs(g[k] - v).max())
         assert err <= 1e-4 * scale, (case, k, err, scale)
@@ -909,8 +990,9 @@ def _norm_spec(spec) -> tuple:
 
 @pytest.mark.parametrize("name", tcfgs.ARCH_NAMES)
 def test_spec_for_matches_jax_on_every_leaf(name):
-    """Every leaf of the JAX package's abstract tree (all 10 configs),
-    and for the 7 ported families the port's own meta-device tree."""
+    """Every leaf of the JAX package's abstract tree (all 10 configs), and
+    the port's own meta-device tree of each: the same keys, shapes and
+    axes."""
     import jax
     from repro.configs import get_config as jget
     from repro.distributed.sharding import default_rules as jrules
@@ -919,13 +1001,11 @@ def test_spec_for_matches_jax_on_every_leaf(name):
     from repro.models.common import abstract_params
     jcfg = jget(name)
     shapes, axes = abstract_params(jbuild(jcfg).init, jax.random.PRNGKey(0))
-    port = None
-    if jcfg.family in ("dense", "moe", "vlm"):
-        pshapes, paxes = build_model(tcfgs.get_config(name),
-                                     device="meta").init(None)
-        assert paxes == axes
-        port = {k: tuple(v.shape) for k, v in pshapes.items()}
-        assert port == {k: tuple(v.shape) for k, v in shapes.items()}
+    pshapes, paxes = build_model(tcfgs.get_config(name),
+                                 device="meta").init(None)
+    assert paxes == axes
+    port = {k: tuple(v.shape) for k, v in pshapes.items()}
+    assert port == {k: tuple(v.shape) for k, v in shapes.items()}
     for mesh_name, shape in MESHES.items():
         stub = _Stub(shape)
         multi = "pod" in shape

@@ -191,6 +191,17 @@ def _transport_checks(group, dev, world: int, out: Path, rank: int):
         all_sum=float(comms[None].all_sum(ids)) == j * (j - 1) / 2,
         all_max=float(comms[None].all_max(ids)) == j - 1)
     (out / f"transport.r{rank}.json").write_text(json.dumps(verdict))
+    # all_sum: the ring's sum of J values spanning six decades, and the
+    # same sum by a world-1 ring (a one-rank subgroup, all J nodes local)
+    import torch.distributed as dist
+    vals = torch.randn((j,), generator=torch.Generator().manual_seed(6)) \
+        * 10.0 ** torch.linspace(-3, 3, j)
+    ring_sum = comms[None].all_sum(vals[lo:lo + ln])
+    alone, _ = dist.new_subgroups(group_size=1)
+    one_sum = RingComm(j, offsets, rev, group=alone, device=dev).all_sum(vals)
+    (out / f"allsum.r{rank}.json").write_text(json.dumps(dict(
+        ring=float(ring_sum).hex(), world1=float(one_sum).hex(),
+        torch_sum=float(torch.sum(vals)).hex())))
 
 
 def _spawn(world: int, root: Path) -> Path:
@@ -464,6 +475,54 @@ def test_ring_transport_matches_its_definition(runs):
         for r in range(world):
             verdict = json.loads((out / f"transport.r{r}.json").read_text())
             assert all(verdict.values()), (world, r, verdict)
+
+
+def test_all_sum_is_the_world1_bits(runs):
+    """RingComm.all_sum over 4 and 8 gloo ranks (one and two nodes a rank)
+    gives every rank the bits of a world-1 ring's sum of the same values:
+    both sum the J values gathered in global node order with one
+    torch.sum, which is the bits of torch.sum over those values."""
+    for world, out in runs.items():
+        for r in range(world):
+            got = json.loads((out / f"allsum.r{r}.json").read_text())
+            assert got["ring"] == got["world1"], (world, r, got)
+            vals = torch.randn((2 * world,), generator=torch.Generator()
+                               .manual_seed(6)) \
+                * 10.0 ** torch.linspace(-3, 3, 2 * world)
+            assert got["world1"] == float(torch.sum(vals)).hex(), \
+                (world, r, got)
+
+
+@pytest.mark.parametrize("op", ["sym_apply", "kcross_apply", "znorm2",
+                                "res_part"])
+def test_ring_row_forms_are_batch_invariant(op):
+    """The solver's products in the form the ring runs them (rows=True):
+    within fp32 rounding of the batched products the dense transport runs,
+    and each node's result the same bits computed alone as in a batch of
+    J (on the CPU; scripts/ring_batch_bits.py checks the card)."""
+    from repro_torch.core.solver import (_kcross_apply, _res_part,
+                                         _sym_apply, _znorm2)
+    j, n, s = 5, 24, 3
+    g = torch.Generator().manual_seed(3)
+    vec = torch.linalg.qr(torch.randn((j, n, n), generator=g))[0]
+    kcross = torch.randn((j, s, s, n, n), generator=g)
+    c = torch.randn((j, s, n), generator=g)
+    fn, args = {"sym_apply": (_sym_apply, (vec, torch.rand((j, n),
+                                                           generator=g),
+                                           torch.randn((j, n, s),
+                                                       generator=g))),
+                "kcross_apply": (_kcross_apply, (kcross, c)),
+                "znorm2": (_znorm2, (c, torch.randn((j, s, n),
+                                                    generator=g))),
+                "res_part": (_res_part, ((torch.rand((j, s), generator=g)
+                                          > 0.3).float(),
+                                         torch.randn((j, n, s),
+                                                     generator=g)))}[op]
+    want, got = fn(*args), fn(*args, rows=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    alone = torch.cat([fn(*(a[i:i + 1] for a in args), rows=True)
+                       for i in range(j)])
+    assert torch.equal(alone, got)
 
 
 def test_uneven_split_raises(runs):

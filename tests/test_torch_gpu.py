@@ -1372,6 +1372,130 @@ def test_probe_on_card_matches_its_cpu_run(cuda):
         <= 2e-4 * scale
 
 
+# ---- the ssm, hybrid and audio families on the card -----------------------
+
+FAMILIES = ["falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-large-v2"]
+
+
+def _rel_gap(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _greedy(model, params, batch, steps):
+    """Prefill ``batch`` (frames and a prompt), then ``steps`` greedy decode
+    steps: each step's logits (fp32, host)."""
+    logits, cache = model.prefill(params, batch, 32)
+    out = [logits.float().cpu().numpy()]
+    plen = batch["tokens"].shape[1]
+    for i in range(steps):
+        nxt = logits.argmax(-1)[:, None].to(torch.int32)
+        logits, cache = model.decode_step(params, cache, nxt, plen + i)
+        out.append(logits.float().cpu().numpy())
+    return out
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_decode_on_card_matches_cpu(cuda, name):
+    """Smoke-size bf16 weights drawn on the CPU and copied to the card:
+    falcon and zamba2 through DecodeEngine (8 prompts of 4-11 tokens, 6 new
+    tokens), seamless by prefill (frames and an 8-token prompt) and 6
+    greedy steps. Each step's logits within 2e-2 of the CPU's as a whole
+    (relative L2 norm), the same greedy tokens until a near tie (within
+    2e-2 of the CPU's choice)."""
+    from repro_torch.configs import concrete_train_batch, get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    cfg = get_config(name, smoke=True)
+    cpu_model = build_model(cfg, device="cpu")
+    params, _ = cpu_model.init(0)
+    card_model = build_model(cfg, device="cuda")
+    card_params = {k: v.to(cuda) for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=rng.integers(4, 12)).tolist()
+               for _ in range(8)]
+    batch = concrete_train_batch(cfg, 4, 8, device="cpu")
+    calls = {}
+    for side, model, p in (("cpu", cpu_model, params),
+                           ("card", card_model, card_params)):
+        if cfg.family == "audio":
+            calls[side] = _greedy(model, p, {
+                k: v.to(model.device) for k, v in batch.items()
+                if k in ("tokens", "frames")}, 6)
+            continue
+        eng = DecodeEngine(model, p, 4, ServeConfig(max_len=64,
+                                                    max_new_tokens=6))
+        seen = calls.setdefault(side, [])
+        inner = eng._sample
+        eng._sample = lambda lg, inner=inner, seen=seen: (
+            seen.append(lg.float().cpu().numpy()), inner(lg))[1]
+        eng.generate(prompts)
+    steps = 7
+    assert len(calls["cpu"]) == len(calls["card"])
+    for w in range(len(calls["cpu"]) // steps):
+        for s in range(steps):
+            want, got = calls["cpu"][w * steps + s], \
+                calls["card"][w * steps + s]
+            assert _rel_gap(got, want) <= 2e-2, (w, s, _rel_gap(got, want))
+            wt, gt = want.argmax(-1), got.argmax(-1)
+            if (wt != gt).any():
+                rows = np.nonzero(wt != gt)[0]
+                assert (want[rows, wt[rows]] - want[rows, gt[rows]]
+                        <= 2e-2).all()
+                break
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_train_step_on_card_matches_cpu(cuda, name):
+    """One fp32 AdamW step of the smoke config from the same weights on the
+    card and the CPU: the loss within 1e-4 relative, the params within
+    1e-4 max|p| of each tensor, and the leaves drawn as zeros (a_log,
+    dt_bias, conv_b) within 1e-4 max(1, max|p|): they hold one normalized
+    Adam step of about lr each, and an element whose gradient is near
+    Adam's eps moves with its gradient's rounding
+    (scripts/family_smoke_gap.py)."""
+    from repro_torch.configs import concrete_train_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+    cfg = _fp32_smoke(name)
+    weights, _ = build_model(cfg, device="cpu").init(0)
+    batch = concrete_train_batch(cfg, 4, 16, device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        _, step_fn = build_train_step(build_model(cfg, device=dev),
+                                      AdamWConfig())
+        p = {k: v.clone().to(dev) for k, v in weights.items()}
+        state = dict(params=p, **adamw_init(p))
+        _, met = step_fn(state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = (float(met["loss"]), state["params"])
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-4 * abs(runs["cpu"][0])
+    for k, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][k].cpu()
+        top = float(want.abs().max())
+        if not weights[k].any():
+            top = max(1.0, top)
+        assert float((got - want).abs().max()) <= 1e-4 * top, k
+
+
+def test_probe_on_family_params_launches_gram_2_and_admm_8(cuda):
+    """The activation probe on zamba2-smoke's params (96 x 16 tokens: J=3
+    nodes of N=32): exactly 2 gram launches (the mean statistics and the
+    node Grams) and 8 admm_step launches (one an iteration)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import activation_probe
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    params, _ = build_model(cfg, device="cuda").init(0)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(96, 16), dtype=np.int32), device=cuda)
+    torch.cuda.synchronize()
+    g0, a0 = gram_tiles.launches, admm_local_update.launches
+    out = activation_probe(params, {"tokens": toks}, n_iters=8)
+    assert not out["skipped"]
+    assert gram_tiles.launches - g0 == 2
+    assert admm_local_update.launches - a0 == 8
+
+
 # ---------------------------------------------------------------------------
 # training over a device mesh
 
@@ -1403,6 +1527,38 @@ def test_mesh_world1_step_on_card_is_the_step(nccl_world1, dtype):
         losses = [float(step_fn(state, data.next_batch())[1]["loss"])
                   for _ in range(2)]
         runs.append((losses, state))
+    assert runs[0][0] == runs[1][0]
+    for g in ("params", "m", "v"):
+        for k, v in runs[0][1][g].items():
+            assert torch.equal(v, runs[1][1][g][k]), (g, k)
+    assert not mesh.counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_mesh_world1_step_is_the_step(nccl_world1, dtype):
+    """zamba2-smoke (remat "full"), one step over a (1, 1) mesh on a NCCL
+    group of world 1 against no mesh: the same loss and state, bit for
+    bit, and no collective issued."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step
+    _, dev = nccl_world1
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", smoke=True),
+                              param_dtype=dtype, compute_dtype=dtype,
+                              remat="full")
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    runs = []
+    for m in (None, mesh):
+        init_fn, step_fn = build_train_step(build_model(cfg, device=dev),
+                                            AdamWConfig(), m)
+        state, _ = init_fn(0)
+        batch = TokenStream(cfg.vocab, 4, 32, seed=0,
+                            device=dev).next_batch()
+        runs.append((float(step_fn(state, batch)[1]["loss"]), state))
     assert runs[0][0] == runs[1][0]
     for g in ("params", "m", "v"):
         for k, v in runs[0][1][g].items():

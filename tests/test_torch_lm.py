@@ -8,8 +8,8 @@ tolerance: the configs compute in bf16), the attention implementations
 (twins of ``tests/test_attention_impls.py``, in fp32 at its tolerances),
 the MoE capacity dispatch against the JAX package's on a one-device mesh
 (drops included), the decode-vs-forward cache check of
-``tests/test_arch_smoke.py``, and the parameter trees of all full configs,
-key for key, built on the meta device.
+``tests/test_arch_smoke.py``, and the parameter trees of all 10 full
+configs (every family), key for key, built on the meta device.
 """
 
 import dataclasses
@@ -361,10 +361,7 @@ def test_full_config_matches_jax(name):
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert tc.n_params() == jc.n_params()
     assert tc.active_params() == jc.active_params()
-    if name in OTHERS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(tc, device="cpu")
-        return
+    assert build_model(tc, device="cpu").device.type == "cpu"
     jshapes, jaxes = jabstract(jbuild(jc).init, jax.random.PRNGKey(0))
     tparams, taxes = abstract_params(build_model(tc, device="meta").init)
     assert sorted(tparams) == sorted(jshapes)
