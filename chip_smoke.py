@@ -5,6 +5,9 @@
     python3 chip_smoke.py --phase dkpca    # build, fit and ring fit alone
     python3 chip_smoke.py --phase lm_families     # build, the families
     python3 chip_smoke.py --phase lm_train_dist   # build, four-card meshes
+    python3 chip_smoke.py --phase dryrun          # build, the dry-run
+    python3 chip_smoke.py --phase lm_decode_dist  # build, four-card decode
+    python3 chip_smoke.py --phase lm_decode_dist --runs falcon-mamba-7b
 
 Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
 
@@ -181,14 +184,44 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            fp32 smoke model's params after 3 steps within 3e-5 max|p| of
            one card on each mesh; a (2, 2) checkpoint restored at (4, 1) and on one card
            (bitwise); the launcher under torchrun on 2 x 2 (rc 0, one
-           last line, on rank 0).
+           last line, on rank 0);
+  lm_decode_dist  on a host with 4 cards (else it records that it did not
+           run, and why): prefill and 32 greedy decode steps over 4
+           spawned NCCL ranks, fed the one-card run's tokens: llama3.2-3b
+           uncut (a 4 x 4096 prompt into a 32768-slot cache) on (4, 1),
+           (2, 2) and (1, 4); mixtral-8x22b and deepseek-v2-236b at full
+           width cut to 2 layers (4 x 16, drop-free) on (2, 2);
+           falcon-mamba-7b uncut on (1, 4); zamba2-1.2b and
+           seamless-m4t-large-v2 (4,096 frames) uncut on (2, 2); each in
+           fp32 (the bf16 weights widened) within the larger of 1e-4 x
+           max(1, |ref|) and 1.25 x the distance of the one-card split
+           twin (the products the mesh splits done in its blocks on one
+           card) from the plain one-card run; in bf16 its relative L2
+           distance from the fp32 card within 1.25 x the one-card bf16
+           run's + 1e-3 (the 2e-2 reading recorded); and mixtral at 4 x
+           512, past the drop-free bound, its dropped slots and distance
+           from one card recorded (capacity semantics: no parity gate);
+           every rank's argument bytes and one decode step's collectives
+           equal to the dry-run's (its fake backend, in a CPU-only child
+           before the timed runs); tokens/s, a traced step, peak per
+           card; ``--runs`` keeps the runs of the configs it names;
+  dryrun   the XLA-free dry-run's CLI over every cell (after every timed
+           phase, CPU only, a pool of workers: 68 ok, 14 SKIP, none
+           failed) and the roofline over its output (34 single-pod rows);
+           the (1, 1) argument bytes of lm_train's run equal to the live
+           training state (params, m, v, step, a batch); llama3.2-3b's
+           prefill and 8 greedy steps over a (1, 1) mesh on a NCCL group
+           of world 1 bitwise the no-mesh run (logits, tokens, cache), no
+           collective issued.
 
 Each path (fit and serve; baselines; top-k; serve_async; serve_sharded;
 faults; dkpca; serve_kpca, counted in the launcher's own process, which
 starts at zero; autotune; lm_serve, which must launch none of the four
 kernels; lm_train, whose probe must launch gram and admm_step; lm_train_mesh, whose
 skipped probe launches none; lm_families, each trained family's train()
-and probe; lm_train_dist's ranks count their own) is
+and probe; lm_train_dist's and lm_decode_dist's ranks count their own;
+lm_decode_dist, its references and dryrun must launch none of the four)
+is
 driven
 with every kernel's launch count zeroed just before it and read just
 after; a kernel the path must run and never
@@ -208,6 +241,7 @@ once, as does a missing CUDA device or a missing repository beside the
 script. It imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -310,6 +344,59 @@ DIST_RANK_TIMEOUT_S = 900
 DIST_LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--mesh", "2x2", "--steps", "3",
                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ))
 DIST_LAUNCH_TIMEOUT_S = 600
+# dryrun: the XLA-free dry-run's CLI over every cell (CPU only, its own
+# pool of workers), run after every timed phase, and its roofline
+DRYRUN_OUT = "build/dryrun/dryrun.json"
+DRYRUN_ARGS = ("--arch", "all", "--shape", "all", "--multipod", "both",
+               "--dkpca", "--out", DRYRUN_OUT)
+DRYRUN_CELLS = (68, 14)            # (ok, SKIP), the dkpca cells included
+DRYRUN_TIMEOUT_S = 600
+MESH11_BATCH, MESH11_PROMPT, MESH11_MAX_LEN, MESH11_STEPS = 4, 64, 128, 8
+# lm_decode_dist: prefill and greedy decode over four cards, each run held
+# to the same weights on one card fed the one-card run's tokens: (arch,
+# layers or None for all, mesh, batch, prompt, max_len); the MoE prompts
+# small enough that every rank's dispatch is drop-free (tokens x top_k <=
+# 8 x experts); seamless's frames number its enc_seq (4096)
+DECODE_RUNS = (
+    ("llama3.2-3b", None, (4, 1), 4, 4096, 32768),
+    ("llama3.2-3b", None, (2, 2), 4, 4096, 32768),
+    ("llama3.2-3b", None, (1, 4), 4, 4096, 32768),
+    ("deepseek-v2-236b", 2, (2, 2), 4, 16, 4096),
+    ("mixtral-8x22b", 2, (2, 2), 4, 16, 4096),
+    ("falcon-mamba-7b", None, (1, 4), 4, 1024, 2048),
+    ("zamba2-1.2b", None, (2, 2), 4, 1024, 4096),
+    ("seamless-m4t-large-v2", None, (2, 2), 4, 64, 1024),
+)
+# and one MoE run past the drop-free bound (each rank routes 1024 tokens):
+# the mesh's capacity dispatch drops slots that the one-card dense loop
+# keeps, so the two differ by design; its drops and its distance from one
+# card are recorded, with no parity gate
+DECODE_DROP_RUN = ("mixtral-8x22b", 2, (2, 2), 4, 512, 4096)
+DECODE_STEPS = 32
+DECODE_SEED = 0
+# every run but the drop run is also run in fp32 (the bf16 weights
+# widened), on one card and over the mesh, and once more on one card with
+# the products the mesh splits over "model" done in its blocks (the split
+# twin, ``split_products``): the fp32 mesh within the larger of
+# DECODE_FP32_TOL * max(1, |ref|) and FAM_BF16_RATIO x the twin's
+# distance from the plain card run (the recurrent stacks amplify the
+# rounding of a reordered sum); the bf16 mesh by the families' rule (its
+# relative L2 distance from the fp32 card within FAM_BF16_RATIO x the
+# bf16 card's + 1e-3); the bf16 2e-2 reading is recorded: two bf16
+# reductions of the same weights part past it at depth, and for the
+# 2-layer MoE pair (PERF.md §6)
+DECODE_FP32_TOL = 1e-4             # the JAX loop's parity tolerance
+# the products of token rows with a weight that a mesh splits over
+# "model" (the training layout), by equation: the weight's label on
+# "model"; its columns where the output keeps the label, else a
+# contraction whose ranks' partial products are summed
+SPLIT_LABEL = {"ble,ei->bli": "i", "blr,ri->bli": "i", "bli,ir->blr": "i",
+               "bli,ie->ble": "i", "bse,ehd->bshd": "h",
+               "bsr,rhd->bshd": "h", "bsc,chd->bshd": "h",
+               "bshd,chd->bshc": "h", "bshc,chd->bshd": "h",
+               "bshd,hde->bse": "h", "bse,ef->bsf": "f",
+               "bsf,fe->bse": "f", "bse,ev->bsv": "v"}
+DECODE_RANK_TIMEOUT_S = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -2449,6 +2536,9 @@ def phase_lm_train(dev, spec) -> dict:
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     # what lm_train_mesh is held to, before anything else moves the state
     ref = dict(losses=hist["loss"], sums=leaf_checksums(state), peak=peak,
+               state_bytes=nbytes(t for g in ("params", "m", "v")
+                                  for t in state[g].values())
+               + nbytes([state["step"]]),
                first=hist["step_time"][0],
                warm=sorted(hist["step_time"][1:])[
                    len(hist["step_time"][1:]) // 2])
@@ -3518,6 +3608,643 @@ def phase_lm_train_dist(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the XLA-free dry-run and decode over a mesh
+
+
+def run_cli(args, log_path, timeout: float, env=None):
+    """``python -m`` a module of the port in a CPU-only child (no card
+    visible to it), in a session of its own so that a timeout ends it with
+    every worker it started; its output to ``log_path``: (rc or
+    "timeout", seconds)."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", **(env or {}))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, *args], env=env, cwd=ROOT,
+                                stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    return rc, time.perf_counter() - t0
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def greedy_run(model, params, batch, max_len: int, feed=None, mesh=None,
+               steps: int = DECODE_STEPS, dtype=None):
+    """Prefill, then ``steps`` decode steps fed ``feed`` (steps, B) or the
+    greedy tokens: (logits (steps + 1, B, V) fp32 on the host, the tokens
+    fed, prefill seconds, decode seconds, the last step's collectives, the
+    last cache)."""
+    import torch
+    kw = {} if dtype is None else {"dtype": dtype}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_len, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = batch["tokens"].shape[1]
+    outs, fed = [logits.float().cpu()], []
+    for i in range(steps):
+        tok = torch.argmax(logits.float(), dim=-1) if feed is None \
+            else feed[i].to(logits.device)
+        fed.append(tok.cpu())
+        if mesh is not None and i == steps - 1:
+            mesh.counts.clear()
+        logits, cache = model.decode_step(params, cache,
+                                          tok[:, None].to(torch.int32),
+                                          s + i)
+        outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {} if mesh is None else dict(mesh.counts)
+    return torch.stack(outs), torch.stack(fed), t1 - t0, t2 - t1, counts, \
+        cache
+
+
+def decode_cfg(arch: str, layers):
+    """A decode run's config: full width, cut to ``layers``, chunked
+    attention (a 4 x 4096 prompt's scores over a 32768-slot cache would
+    take 51 GB einsummed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), attention_impl="chunked")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def decode_batch(cfg, b: int, prompt: int, dev):
+    """A run's prompt (and seamless's enc_seq frames), drawn with numpy
+    from DECODE_SEED."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(DECODE_SEED)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(b, prompt), dtype=np.int32), device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.normal(0, 0.02, size=(
+            b, cfg.enc_seq, cfg.d_model)).astype(np.float32), device=dev)
+    return batch
+
+
+def run_key(run) -> str:
+    arch, layers, shape, _, prompt, _ = run
+    return f"{arch}{'' if layers is None else f' x{layers}'} " \
+           f"{shape[0]}x{shape[1]}" + \
+           (f" p{prompt}" if run == DECODE_DROP_RUN else "")
+
+
+def decode_runs(only=None):
+    """DECODE_RUNS and the drop run, or those of the archs in ``only``."""
+    runs = DECODE_RUNS + (DECODE_DROP_RUN,)
+    return runs if not only else tuple(r for r in runs if r[0] in only)
+
+
+def mesh11_decode(dev) -> dict:
+    """llama3.2-3b at full width and depth on the card: a prefill of 4 x 64
+    tokens and 8 greedy steps without a mesh and over a (1, 1) mesh (a NCCL
+    group of world 1), bitwise: the logits, the tokens and the cache."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    params, _ = model.init(DECODE_SEED)
+    batch = decode_batch(cfg, MESH11_BATCH, MESH11_PROMPT, dev)
+    with torch.no_grad():
+        want, wtok, _, wdec, _, wcache = greedy_run(
+            model, params, batch, MESH11_MAX_LEN, steps=MESH11_STEPS)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            mesh = mesh_of((1, 1), f"{tmp}/store")
+            try:
+                m11 = build_model(cfg, mesh=mesh)
+                got, gtok, _, gdec, counts, gcache = greedy_run(
+                    m11, params, batch, MESH11_MAX_LEN, mesh=mesh,
+                    steps=MESH11_STEPS)
+                issued = dict(mesh.counts)
+            finally:
+                dist.destroy_process_group()
+    same_cache = all(torch.equal(a, b) for a, b in zip(wcache,
+                                                       gcache.shards))
+    del params, wcache, gcache
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, batch=MESH11_BATCH, prompt=MESH11_PROMPT,
+                max_len=MESH11_MAX_LEN, steps=MESH11_STEPS,
+                logits_bitwise=torch.equal(got, want),
+                tokens_equal=torch.equal(gtok, wtok),
+                cache_bitwise=same_cache,
+                max_abs_err=float((got - want).abs().max()),
+                collectives=issued, decode_s=gdec, no_mesh_decode_s=wdec)
+
+
+def phase_dryrun(dev, train_ref=None) -> dict:
+    """The dry-run's CLI over every cell (after every timed phase, so that
+    its CPU workers share the host with none) and the roofline over its
+    output; its (1, 1) argument bytes for lm_train's run against the live
+    training state (params, m, v, step and a batch of lm_train's stream,
+    built on the card); a (1, 1) mesh decode bitwise the no-mesh decode
+    (``mesh11_decode``). None of the four kernels launches."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_train_step
+    t_phase = time.perf_counter()
+    out = ROOT / DRYRUN_OUT
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    rc, cli_s = run_cli(("-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS),
+                        out.with_suffix(".log"), DRYRUN_TIMEOUT_S)
+    cells = json.loads(out.read_text()) if out.exists() else {}
+    n_ok = sum(1 for v in cells.values() if v["ok"])
+    n_skip = sum(1 for v in cells.values()
+                 if v.get("error", "").startswith("SKIP"))
+    failed = sorted(k for k, v in cells.items() if not v["ok"]
+                    and not v.get("error", "").startswith("SKIP"))
+    check(rc == 0 and (n_ok, n_skip) == DRYRUN_CELLS and not failed,
+          f"dryrun: the CLI's rc {rc}, {n_ok} ok, {n_skip} skipped, failed "
+          f"{failed[:6]} (want {DRYRUN_CELLS})")
+    md = out.with_name("roofline.md")
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dryrun",
+         str(out), "--out", str(out.with_name("roofline.json")),
+         "--markdown", str(md)], env=dict(os.environ,
+                                          PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    rows = [ln for ln in roof.stdout.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| arch")]
+    check(roof.returncode == 0 and len(rows) == 34,
+          f"dryrun: roofline rc {roof.returncode}, {len(rows)} rows (want "
+          f"34 single-pod cells), stderr {roof.stderr[-1500:]}")
+    # the (1, 1) argument bytes of lm_train's run against its live state
+    zero_launches()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("lm_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    parts, _ = dryrun.cell_bytes(cfg, shape, dryrun.StubMesh(
+        (1, 1), ("data", "model")), dryrun.rules_for(cfg, False))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_fn, _ = build_train_step(build_model(cfg, device=dev),
+                                  AdamWConfig())
+    state, _ = init_fn(0)
+    batch = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                        device=str(dev)).next_batch()
+    live = dict(params=nbytes(state["params"].values()),
+                m=nbytes(state["m"].values()), v=nbytes(state["v"].values()),
+                step=nbytes([state["step"]]), batch=nbytes(batch.values()))
+    del state
+    torch.cuda.empty_cache()
+    if train_ref is not None:
+        check(train_ref["state_bytes"] == live["params"] + live["m"]
+              + live["v"] + live["step"],
+              f"dryrun: lm_train's state {train_ref['state_bytes']} B vs "
+              f"the built one {live}")
+    check(parts == live, f"dryrun: (1, 1) argument bytes of lm_train's run "
+                         f"{parts} vs the live state {live}")
+    m11 = mesh11_decode(dev)
+    check(m11["logits_bitwise"] and m11["tokens_equal"]
+          and m11["cache_bitwise"] and not m11["collectives"],
+          f"dryrun: a (1, 1) mesh decode is not the no-mesh decode: {m11}")
+    launches = read_launches("dryrun", ())
+    check(not any(launches.values()),
+          f"dryrun: a kPCA kernel launched: {launches}")
+    single = {k: v for k, v in cells.items() if v.get("ok")
+              and v["mesh"] == "16x16"}
+    out_rec = dict(
+        cli=dict(args=list(DRYRUN_ARGS), rc=rc, seconds=cli_s, ok=n_ok,
+                 skipped=n_skip, failed=failed),
+        roofline=dict(rc=roof.returncode, rows=len(rows),
+                      markdown=str(md.relative_to(ROOT))),
+        flops_per_device_16x16={k: v["flops_per_device"]
+                                for k, v in sorted(single.items())},
+        argument_bytes_11=dict(dryrun=parts, live=live,
+                               equal=parts == live,
+                               lm_train_peak_alloc_gb=None if train_ref
+                               is None else train_ref["peak"]),
+        mesh11_decode=m11, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    emit("dryrun", **out_rec)
+    return out_rec
+
+
+def decode_predictions(path: str, only=None) -> None:
+    """The dry-run's argument bytes and one decode step's collectives (the
+    fake backend, rank 0) for every run of ``decode_runs(only)``: a JSON
+    file. Run in a process of its own (it makes a fake process group)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    res = {}
+    for run in decode_runs(only):
+        arch, layers, shape, b, prompt, max_len = run
+        cfg = decode_cfg(arch, layers)
+        spec = ShapeSpec("decode", "decode", max_len, b)
+        parts, _ = dryrun.cell_bytes(cfg, spec, dryrun.StubMesh(
+            shape, ("data", "model")), dryrun.rules_for(cfg, False))
+        flops, _, colls = dryrun.measure(cfg, spec, False, mesh_shape=shape,
+                                         axes=("data", "model"))
+        res[run_key(run)] = dict(argument_bytes=parts, flops=flops,
+                                 collectives=colls)
+    Path(path).write_text(json.dumps(res))
+
+
+def count_drops(into: list):
+    """Wrap ``moe._dispatch`` so that each call appends (slots routed,
+    slots over their expert's capacity) of the tokens it routes; returns
+    the wrapped function, to put back."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe._dispatch
+
+    def run(router, w_gate, w_up, w_down, cfg, x, first=0, repl=1):
+        t = x.shape[0] * x.shape[1]
+        ids, _, _ = moe._route({"router": router}, cfg, x.reshape(t, -1))
+        per_expert = torch.bincount(ids.reshape(-1),
+                                    minlength=cfg.n_experts)
+        over = torch.clamp(per_expert - moe._capacity(t, cfg), min=0)
+        into.append((ids.numel(), int(over.sum())))
+        return orig(router, w_gate, w_up, w_down, cfg, x, first, repl)
+
+    moe._dispatch = run
+    return orig
+
+
+def decode_rank(rank: int, world: int, store: str, tmp: str,
+                only=None) -> None:
+    """One rank of lm_decode_dist (a spawned process on card ``rank``):
+    every run of ``decode_runs(only)`` on its mesh, fed the one-card run's
+    tokens; rank 0 writes the logits (and, but for the drop run, those of
+    the same run in fp32 through the widened weights); every rank its
+    times, peak, live argument bytes, one bf16 decode step's collectives,
+    a traced step, the drop run's dropped slots, and its kernel launches
+    (counted from zero at its start)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import batch_axes_of
+    from repro_torch.launch.dryrun import collectives_of
+    from repro_torch.models import build_model, moe
+    from repro_torch.train.loop import shard_place
+    meshes = {shape: mesh_of(shape, store, rank, world)
+              for shape in DIST_MESHES}
+    dev = meshes[DIST_MESHES[0]].device
+    feeds = torch.load(f"{tmp}/feeds.pt")
+    zero_launches()
+    res = {}
+    try:
+        with torch.no_grad():
+            for run in decode_runs(only):
+                arch, layers, shape, b, prompt, max_len = run
+                key = run_key(run)
+                cfg, mesh = decode_cfg(arch, layers), meshes[shape]
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                model = build_model(cfg, mesh=mesh)
+                params, _ = model.init(DECODE_SEED,
+                                       place=shard_place(model.shards()))
+                batch = decode_batch(cfg, b, prompt, dev)
+                drops = []
+                orig = count_drops(drops) if run == DECODE_DROP_RUN \
+                    else None
+                try:
+                    logits, _, pre_s, dec_s, counts, cache = greedy_run(
+                        model, params, batch, max_len, feed=feeds[key],
+                        mesh=mesh)
+                finally:
+                    if orig is not None:
+                        moe._dispatch = orig
+                dp = mesh.size(batch_axes_of(mesh))
+                rows = b // dp if b % dp == 0 else b
+                live = dict(params=nbytes(params.values()),
+                            cache=nbytes(cache.shards), tokens=4 * rows,
+                            cache_len=4)
+                tok = feeds[key][-1].to(dev)[:, None].to(torch.int32)
+                pos = prompt + DECODE_STEPS
+                _, wall, trace = timed_and_traced(
+                    torch, lambda: model.decode_step(params, cache, tok,
+                                                     pos))
+                res[key] = dict(
+                    prefill_s=pre_s, decode_s=dec_s,
+                    tokens_per_s=b * DECODE_STEPS / dec_s,
+                    step=dict(wall_s=wall, **trace),
+                    peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    argument_bytes=live,
+                    collectives=collectives_of(counts),
+                    slots_routed=sum(n for n, _ in drops),
+                    slots_dropped=sum(d for _, d in drops))
+                del cache
+                saved = dict(bf16=logits)
+                if run != DECODE_DROP_RUN:
+                    # the same tokens through the widened weights, in fp32
+                    wide = {k: v.float() for k, v in params.items()}
+                    del params
+                    torch.cuda.empty_cache()
+                    m32 = build_model(fp32(cfg), mesh=mesh)
+                    saved["fp32"], *_ = greedy_run(
+                        m32, wide, batch, fp32_len(cfg, prompt, max_len),
+                        feed=feeds[key], mesh=mesh, dtype=torch.float32)
+                    del wide, m32
+                if rank == 0:
+                    torch.save(saved, f"{tmp}/mesh_{key}.pt")
+                del model, saved
+        torch.cuda.synchronize()
+        launches = {name: getattr(w, attr)
+                    for name, (w, attr) in launch_counters().items()}
+        (Path(tmp) / f"decode_rank{rank}.json").write_text(json.dumps(
+            dict(runs=res, launches=launches)))
+    finally:
+        dist.destroy_process_group()
+
+
+def split_einsum(orig, tp: int):
+    """``tok_einsum`` with the products of SPLIT_LABEL done in ``tp``
+    blocks of the weight's label: output columns concatenated, or the
+    blocks' partial products summed in rank order."""
+    import torch
+
+    def run(eq, x, w):
+        lab = SPLIT_LABEL.get(eq)
+        if lab is None:
+            return orig(eq, x, w)
+        ins, out = eq.split("->")
+        xs, ws = ins.split(",")
+        wd = ws.index(lab)
+        xd = xs.index(lab) if lab in xs else None
+        xparts = x.chunk(tp, xd) if xd is not None else [x] * tp
+        parts = [orig(eq, xp, wp) for xp, wp in zip(xparts,
+                                                    w.chunk(tp, wd))]
+        if lab in out:
+            return torch.cat(parts, out.index(lab))
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc
+    return run
+
+
+@contextlib.contextmanager
+def split_products(cfg, tp: int):
+    """On one card, the products a mesh of ``tp`` "model" ranks splits
+    (SPLIT_LABEL) done in its blocks, in every model module that computes
+    them over a mesh: all but the MoE experts (dispatched whole, by
+    expert) and, for the hybrid family, the mamba2 layers (gathered
+    whole)."""
+    from repro_torch.models import attention, common, encdec, lm, mamba, mlp
+    mods = [attention, encdec, lm, mlp] + (
+        [mamba] if cfg.family != "hybrid" else [])
+    saved = [m.tok_einsum for m in mods]
+    for m in mods:
+        m.tok_einsum = split_einsum(common.tok_einsum, tp)
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.tok_einsum = f
+
+
+def fp32_len(cfg, prompt: int, max_len: int) -> int:
+    """The fp32 run's cache slots: the prompt and the steps, rounded up to
+    a 1024-slot attention chunk (llama3.2-3b's 32768 fp32 slots, held
+    twice across a step, do not fit one card). A full-attention cache's
+    slots past the last position are masked and add exact zeros, so the
+    values are those of max_len slots; a sliding window's ring keeps
+    max_len."""
+    if cfg.attn_kind == "swa":
+        return max_len
+    return min(max_len, -(-(prompt + DECODE_STEPS) // 1024) * 1024)
+
+
+def decode_references(dev, tmp: str, only=None) -> dict:
+    """The one-card runs lm_decode_dist is held to: every distinct run of
+    ``decode_runs(only)`` greedy in bf16 on card 0 (its tokens are what
+    the ranks are fed), and, but for the drop run, the same tokens
+    through the bf16 weights widened to fp32 (fp32 caches of ``fp32_len``
+    slots): plainly, and as the split twin of each "model" size its
+    meshes have above 1 (``split_products``). Saves the feeds for the
+    ranks."""
+    import torch
+    from repro_torch.models import build_model
+    runs = decode_runs(only)
+    refs, feeds = {}, {}
+    done = {}
+    with torch.no_grad():
+        for run in runs:
+            arch, layers, shape, b, prompt, max_len = run
+            key = run_key(run)
+            one = (arch, layers, b, prompt, max_len)
+            if one in done:
+                refs[key], feeds[key] = refs[done[one]], feeds[done[one]]
+                continue
+            done[one] = key
+            cfg = decode_cfg(arch, layers)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(cfg, device=dev)
+            params, _ = model.init(DECODE_SEED)
+            batch = decode_batch(cfg, b, prompt, dev)
+            logits, toks, pre_s, dec_s, _, cache = greedy_run(
+                model, params, batch, max_len)
+            rec = dict(logits=logits, prefill_s=pre_s, decode_s=dec_s,
+                       tokens_per_s=b * DECODE_STEPS / dec_s,
+                       peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del cache
+            if run != DECODE_DROP_RUN:
+                wide = {k: v.float() for k, v in params.items()}
+                del params
+                torch.cuda.empty_cache()
+                n32, c32 = fp32_len(cfg, prompt, max_len), fp32(cfg)
+                rec["fp32"], *_ = greedy_run(build_model(c32, device=dev),
+                                             wide, batch, n32, feed=toks,
+                                             dtype=torch.float32)
+                tps = sorted({r[2][1] for r in runs if r[:2] == run[:2]
+                              and r[3:] == run[3:] and r[2][1] > 1})
+                for tp in tps:
+                    with split_products(cfg, tp):
+                        twin, *_ = greedy_run(
+                            build_model(c32, device=dev), wide, batch, n32,
+                            feed=toks, dtype=torch.float32)
+                    rec[f"twin_err_{tp}"] = float(
+                        (twin - rec["fp32"]).abs().max())
+                    del twin
+                del wide
+            refs[key], feeds[key] = rec, toks
+            torch.cuda.empty_cache()
+    torch.save(feeds, f"{tmp}/feeds.pt")
+    return refs
+
+
+def rel_l2(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def decode_record(run, ref, got, got32, ranks, predicted) -> tuple:
+    """(a run's record, whether it meets its gates)."""
+    import torch
+    key = run_key(run)
+    want = ref["logits"]
+    diff = (got - want).abs()
+    rec = dict(
+        mesh=list(run[2]), batch=run[3], prompt=run[4], max_len=run[5],
+        steps=DECODE_STEPS, max_abs_err=float(diff.max()),
+        max_abs_logit=float(want.abs().max()),
+        worst_ratio_2e2=float((diff / (LM_TOL + LM_TOL * want.abs())).max()),
+        greedy_agree=float((got[:-1].argmax(-1) == want[:-1].argmax(-1))
+                           .float().mean()),
+        rel_l2_to_one_card=rel_l2(got, want),
+        one_card=dict(prefill_s=ref["prefill_s"], decode_s=ref["decode_s"],
+                      tokens_per_s=ref["tokens_per_s"],
+                      peak_alloc_gb=ref["peak_alloc_gb"]))
+    ok = bool(torch.isfinite(got).all())
+    if got32 is not None:
+        tp = run[2][1]
+        err32 = float((got32 - ref["fp32"]).abs().max())
+        twin = ref[f"twin_err_{tp}"] if tp > 1 else 0.0
+        gate32 = max(DECODE_FP32_TOL * max(
+            1.0, float(ref["fp32"].abs().max())), FAM_BF16_RATIO * twin)
+        mesh_d, one_d = rel_l2(got, ref["fp32"]), rel_l2(want, ref["fp32"])
+        rec.update(fp32_max_abs_err=err32, fp32_twin_err=twin,
+                   fp32_gate=gate32, rel_l2_to_fp32=mesh_d,
+                   one_card_rel_l2_to_fp32=one_d,
+                   bf16_gate=f"<= {FAM_BF16_RATIO} x one card + 1e-3")
+        ok = ok and err32 <= gate32 and \
+            mesh_d <= FAM_BF16_RATIO * one_d + 1e-3
+    else:
+        rec.update(slots_routed_by_rank=[r["runs"][key]["slots_routed"]
+                                         for r in ranks],
+                   slots_dropped_by_rank=[r["runs"][key]["slots_dropped"]
+                                          for r in ranks])
+    r0 = ranks[0]["runs"][key]
+    pred_k = predicted[key]
+    live_bytes = [r["runs"][key]["argument_bytes"] for r in ranks]
+    bytes_eq = all(lb == pred_k["argument_bytes"] for lb in live_bytes)
+    colls_eq = all(r["runs"][key]["collectives"] == pred_k["collectives"]
+                   for r in ranks)
+    rec.update(
+        prefill_s=r0["prefill_s"], decode_s=r0["decode_s"],
+        tokens_per_s=r0["tokens_per_s"], step_rank0=r0["step"],
+        peak_alloc_gb_by_rank=[r["runs"][key]["peak_alloc_gb"]
+                               for r in ranks],
+        argument_bytes_live=live_bytes[0],
+        argument_bytes_dryrun=pred_k["argument_bytes"],
+        collectives_live=r0["collectives"],
+        collectives_dryrun=pred_k["collectives"],
+        flops_per_card_dryrun=pred_k["flops"],
+        argument_bytes_equal=bytes_eq, collectives_equal=colls_eq)
+    return rec, ok and bytes_eq and colls_eq
+
+
+def phase_lm_decode_dist(dev, only=None) -> dict:
+    """Prefill and decode over min(4, cards) NCCL ranks in spawned
+    processes (``decode_rank``), every run of ``decode_runs(only)`` fed
+    its one-card greedy tokens (``decode_references``) and held to one
+    card: in fp32 (the bf16 weights widened, both sides) within the larger
+    of DECODE_FP32_TOL * max(1, |ref|) and 1.25 x the split twin's
+    distance from the plain card run; in bf16 by the families' rule, the
+    mesh's relative L2 distance from the fp32 card within 1.25 x the bf16
+    card's + 1e-3 (the 2e-2 reading recorded). The drop run records its
+    dropped slots and its distance from one card, and has no parity gate.
+    Also: the dry-run's per-card argument bytes and one decode step's
+    collectives (``decode_predictions``, the fake backend, in a CPU-only
+    child before any timed run) against the live ranks', equal; tokens/s,
+    a traced step's device time and idle share, peak; no kPCA kernel
+    launched, in the references or on any rank. On a host with fewer than
+    4 cards it does not run, and says why."""
+    import multiprocessing
+    import torch
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    if count < DIST_RANKS:
+        reason = (f"{count} card(s) on this host: the (4, 1), (2, 2) and "
+                  f"(1, 4) meshes need {DIST_RANKS} (run --phase "
+                  f"lm_decode_dist on a four-card host)")
+        print(f"chip_smoke: lm_decode_dist did not run: {reason}",
+              file=sys.stderr, flush=True)
+        emit("lm_decode_dist", ran=False, reason=reason)
+        return dict(ran=False, reason=reason)
+    world = DIST_RANKS
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pred_rc, pred_s = run_cli(
+            ("-c", "import sys; sys.path.insert(0, "
+             f"{str(ROOT)!r}); import chip_smoke; "
+             "chip_smoke.decode_predictions(sys.argv[1], "
+             "sys.argv[2:] or None)", f"{tmp}/predictions.json",
+             *(only or ())), f"{tmp}/predictions.log",
+            DECODE_RANK_TIMEOUT_S)
+        plog = Path(tmp, "predictions.log").read_text()[-2000:]
+        check(pred_rc == 0,
+              f"lm_decode_dist: the predictions' rc {pred_rc}: {plog}")
+        if pred_rc != 0:
+            emit("lm_decode_dist", ran=True, predictions_rc=pred_rc)
+            return dict(ran=True, predictions_rc=pred_rc)
+        zero_launches()
+        t0 = time.perf_counter()
+        refs = decode_references(dev, tmp, only)
+        ref_s = time.perf_counter() - t0
+        ref_launches = read_launches("lm_decode_dist references", ())
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=decode_rank,
+                             args=(r, world, f"{tmp}/store", tmp, only))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DECODE_RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        check(not hung and codes == [0] * world,
+              f"lm_decode_dist: ranks {hung} hung, exit codes {codes}")
+        if hung or codes != [0] * world:
+            emit("lm_decode_dist", ran=True, exit_codes=codes, hung=hung)
+            return dict(ran=True, exit_codes=codes, hung=hung)
+        ranks = [json.loads(Path(f"{tmp}/decode_rank{r}.json").read_text())
+                 for r in range(world)]
+        launches = [ref_launches] + [r["launches"] for r in ranks]
+        check(not any(v for c in launches for v in c.values()),
+              f"lm_decode_dist: a kPCA kernel launched (references, then "
+              f"each rank): {launches}")
+        predicted = json.loads(Path(f"{tmp}/predictions.json").read_text())
+        runs = {}
+        for run in decode_runs(only):
+            key = run_key(run)
+            saved = torch.load(f"{tmp}/mesh_{key}.pt")
+            rec, ok = decode_record(run, refs[key], saved["bf16"],
+                                    saved.get("fp32"), ranks, predicted)
+            check(ok, f"lm_decode_dist {key}: {rec}")
+            del saved
+            runs[key] = rec
+        out = dict(ran=True, world=world, runs=runs, only=only,
+                   predictions_s=pred_s, reference_s=ref_s,
+                   ranks_s=ranks_s, launches=launches,
+                   phase_s=time.perf_counter() - t_phase)
+    emit("lm_decode_dist", **out)
+    return out
+
+
 def warm_start_split(vec, lam, x_nodes, alpha_gt, spec, gamma) -> int:
     """Nodes whose init="local" warm start v1/sqrt(lam1) points against the
     central component, counted on the smaller side (the global sign is
@@ -3539,15 +4266,24 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--phase", choices=("all", "dkpca", "lm_families",
-                                        "lm_train_dist"),
+                                        "lm_train_dist", "dryrun",
+                                        "lm_decode_dist"),
                     default="all",
                     help="dkpca: the build, the fit it is held to and the "
                          "ring fit alone (its multi-card part on a "
                          "four-card host); lm_families: the build and the "
                          "ssm, hybrid and audio families alone; "
                          "lm_train_dist: the build and the four-card "
-                         "training meshes alone")
-    phase = ap.parse_args(argv).phase
+                         "training meshes alone; dryrun: the build and the "
+                         "dry-run alone; lm_decode_dist: the build and "
+                         "the four-card decode meshes alone")
+    ap.add_argument("--runs", default=None,
+                    help="lm_decode_dist: only the runs of these configs "
+                         "(comma-separated names), to recheck some of "
+                         "them without the others")
+    args = ap.parse_args(argv)
+    phase = args.phase
+    only = None if args.runs is None else tuple(args.runs.split(","))
     only_dkpca = phase == "dkpca"
     import torch
     if not torch.cuda.is_available():
@@ -3584,12 +4320,16 @@ def main(argv=None) -> int:
         check(any(kernel in f and n > 0 for f, n in hgmma.items()),
               f"no wgmma (HGMMA) instruction in {kernel}")
 
-    if phase in ("lm_families", "lm_train_dist"):
+    if phase in ("lm_families", "lm_train_dist", "dryrun", "lm_decode_dist"):
         if phase == "lm_families":
             from repro_torch.core import KernelSpec
             phase_lm_families(dev, KernelSpec(kind="rbf"))
-        else:
+        elif phase == "lm_train_dist":
             phase_lm_train_dist(dev)
+        elif phase == "dryrun":
+            phase_dryrun(dev)
+        else:
+            phase_lm_decode_dist(dev, only)
         if FAILURES:
             raise SmokeFailure(f"{len(FAILURES)} check(s) failed: "
                                f"{FAILURES}")
@@ -3721,9 +4461,11 @@ def main(argv=None) -> int:
     path_launches["lm_serve"] = phase_lm_serve(dev)
     path_launches["lm_train"], train_ref = phase_lm_train(dev, spec)
     path_launches["lm_train_mesh"] = phase_lm_train_mesh(dev, train_ref)
-    del train_ref
     path_launches["lm_families"] = phase_lm_families(dev, spec)
     phase_lm_train_dist(dev)
+    phase_lm_decode_dist(dev)
+    phase_dryrun(dev, train_ref)
+    del train_ref
     check("jax" not in sys.modules and not any(
         k == "repro" or k.startswith("repro.") for k in sys.modules),
         "the JAX package was imported")

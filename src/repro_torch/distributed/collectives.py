@@ -32,8 +32,9 @@ first and second moment is a plain local tensor, the process's shard under
 
 A group of one rank makes every collective the identity, and then none is
 issued: on a (1, 1) mesh the step is the single-device step's code, op for
-op. ``Mesh.counts`` counts the collectives issued (calls and bytes by
-kind), forward and backward.
+op. ``Mesh.counts`` counts the collectives issued (calls, and the bytes
+of each one's output as the JAX dry-run counts them, by kind), forward
+and backward.
 """
 
 from __future__ import annotations
@@ -139,7 +140,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh: Mesh,
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
-    mesh.count("reduce_scatter", xt)
+    mesh.count("reduce_scatter", out)
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
                                group=mesh.group(axes))
     return out.movedim(0, dim)

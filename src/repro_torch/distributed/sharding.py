@@ -19,6 +19,10 @@ Conventions:
   embed -> "data" [+"pod"]                             (FSDP weight shard)
   cache_seq -> "model"
   layers / stack / conv / state -> None
+
+``cache_specs`` lays out a decode cache as the JAX dry-run's
+``_cache_sharded`` does (context-parallel decode: the KV cache's
+sequence dim on "model").
 """
 
 from __future__ import annotations
@@ -139,6 +143,38 @@ def local_shard(full: torch.Tensor, spec: Spec, mesh,
     return out
 
 
+def cache_specs(cache, mesh, rules: Rules):
+    """The specs of a decode cache's leaves (tensors, or anything with a
+    ``.shape``), in the cache's own structure: a copy of the JAX dry-run's
+    heuristic (``repro.launch.dryrun._cache_sharded``). The batch dim (1
+    for a stacked cache, else 0) goes to the batch axes when they divide
+    it; the longest remaining dim goes to "model" when "model" divides it
+    (the KV cache's and MLA latents' sequence, mamba1's d_inner). As
+    written there, any 3-d leaf takes dim 1 as its batch: seamless's
+    ``enc_out`` (B, enc_seq, d_model) gets enc_seq on the batch axes and
+    d_model on "model"."""
+    batch_axes = rules["batch"]
+    bsz = axis_size(mesh, batch_axes)
+    model = mesh.shape.get("model", 1)
+
+    def one(t) -> Spec:
+        shape = tuple(int(d) for d in getattr(t, "shape", t))
+        spec = [None] * len(shape)
+        bdim = 1 if len(shape) >= 3 else 0
+        if shape[bdim] % bsz == 0:
+            spec[bdim] = batch_axes
+        rest = [(d, i) for i, d in enumerate(shape) if i != bdim]
+        if rest:
+            d, i = max(rest)
+            if d % model == 0 and d >= model:
+                spec[i] = "model"
+        return tuple(spec)
+
+    specs = [one(t) for t in cache]
+    return type(cache)(*specs) if hasattr(cache, "_fields") \
+        else type(cache)(specs)
+
+
 __all__ = ["MeshAxes", "Rules", "Spec", "axes_of", "axis_size",
-           "default_rules", "local_shard", "shard_index", "shard_shape",
+           "cache_specs", "default_rules", "local_shard", "shard_index", "shard_shape",
            "spec_for", "tree_specs"]

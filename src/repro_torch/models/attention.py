@@ -25,6 +25,24 @@ the qk-norm scales) go through "f" themselves, so their gradients are
 summed over the shards. With the heads replicated every shard runs the
 whole attention. The JAX package's ``_seq_shard`` (``attn_seq_shard``) is
 a GSPMD layout hint with no numeric effect and has no counterpart here.
+
+Decode and prefill over a mesh (``shards`` with a cache; the cache laid
+out by ``sharding.cache_specs``) are context-parallel: each "model" rank
+holds its slice of the cache's slots for every KV head. The rank's q/k/v
+heads (column-parallel, as in training) are all-gathered over "model" in
+one call, so every rank has every head; the rank whose slots hold a new
+position writes its K/V; each rank runs the online softmax over its own
+slots (``_online_partial``) and one all-gather of the partials (output,
+running max and sum) over "model" merges them by their log-sum-exp; the
+rank's own heads of the merged output go through ``wo`` and "g". MLA's
+absorbed decode does the same with its latents (one "KV head": the
+latent and rotary key parts side by side). A cache whose sequence is not
+split over "model" is attended whole on every rank, as on one device. A
+prompt longer than an SWA ring (S >= window) attends within itself on
+every rank, as on one device, and each rank keeps its slots of the ring.
+One cache path (``_gqa_cache``, ``mla_decode``) serves both: without a
+mesh (``shards`` None) one "rank" holds every head and slot, and nothing
+is gathered or merged.
 """
 
 from __future__ import annotations
@@ -35,7 +53,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..configs.base import ArchConfig
-from .common import ParamCollector, rms_norm, tok_einsum
+from ..distributed.collectives import MODEL, all_gather
+from .common import ParamCollector, block_of, rms_norm, tok_einsum
 from .rope import apply_rope
 
 NEG_INF = -1e9
@@ -120,10 +139,11 @@ def _chunk_sizes(sq: int, sk: int, q_chunk: int, kv_chunk: int):
     return qc, kc, sq // qc, sk // kc
 
 
-def _online_softmax(qb, chunks, scale):
+def _online_partial(qb, chunks, scale):
     """One query chunk qb (b,qc,hk,g,d) against ``chunks``, an iterable of
     (kb, vb, bias block (b,qc,kc), valid): flash-style accumulation with a
-    running max, returns (b,qc,hk,g,dv)."""
+    running max; returns the unnormalized (acc (b,hk,g,qc,dv), running max
+    m and sum l (b,hk,g,qc) in fp32)."""
     b, qc, hk, g, _ = qb.shape
     acc = m = l = None
     for kb, vb, bk, valid in chunks:
@@ -145,6 +165,12 @@ def _online_softmax(qb, chunks, scale):
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(qb.dtype), vb)
         acc = acc * corr[..., None].to(acc.dtype) + pv
         m = m_new
+    return acc, m, l
+
+
+def _online_softmax(qb, chunks, scale):
+    """``_online_partial`` normalized: (b,qc,hk,g,dv)."""
+    acc, _, l = _online_partial(qb, chunks, scale)
     out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
     return out.permute(0, 3, 1, 2, 4)                     # (b,qc,hk,g,d)
 
@@ -153,7 +179,8 @@ def _sdpa_chunked(q, k, v, bias, scale, q_chunk: int, kv_chunk: int,
                   unroll=1):
     """Flash-style two-level loop with online softmax (memory-bounded)."""
     sq, sk = q.shape[1], k.shape[1]
-    qc, kc, nq, nk = _chunk_sizes(sq, sk, q_chunk, kv_chunk)
+    qc, kc, nq, nk = _chunk_sizes(sq, sk, block_of(q_chunk, sq, q.device),
+                                  block_of(kv_chunk, sk, q.device))
     outs = []
     for iq in range(nq):
         qs = slice(iq * qc, (iq + 1) * qc)
@@ -235,7 +262,7 @@ def _gqa_qkv(p, cfg: ArchConfig, x, shards):
     hq = q.shape[2]
     group = cfg.n_heads // cfg.n_kv_heads
     kv = (shards.mi * hq + torch.arange(hq, device=x.device)) // group
-    lo, hi = int(kv[0]), int(kv[-1]) + 1
+    lo, hi = shards.mi * hq // group, (shards.mi * hq + hq - 1) // group + 1
     k, v = (tok_einsum("bse,ehd->bshd", x,
                        shards.f(p[w])[:, lo:hi].to(x.dtype))[:, :, kv - lo]
             for w in ("wk", "wv"))
@@ -244,10 +271,15 @@ def _gqa_qkv(p, cfg: ArchConfig, x, shards):
 
 def gqa_forward(p, cfg: ArchConfig, x, positions, causal=True,
                 cache: Optional[KVCache] = None, cache_len=None, mesh=None,
-                shards=None):
+                shards=None, seq_split: bool = False):
     """x (B,S,E). With cache: decode/append mode — writes new kv at
-    positions, attends over the cache. Returns (out, new_cache).
-    ``shards``: the layout of ``p`` on the training mesh (no cache)."""
+    positions, attends over the cache (``_gqa_cache``). Returns (out,
+    new_cache). ``shards``: the layout of ``p`` on the mesh; with a cache,
+    the cache is this rank's shard, its slots split over "model" when
+    ``seq_split`` (context-parallel, see the module docstring)."""
+    if cache is not None:
+        return _gqa_cache(p, cfg, x, positions, causal, cache, cache_len,
+                          shards, seq_split)
     q, k, v = _gqa_qkv(p, cfg, x, shards)
     if cfg.qk_norm:
         qn, kn = p["q_norm"], p["k_norm"]
@@ -257,59 +289,173 @@ def gqa_forward(p, cfg: ArchConfig, x, positions, causal=True,
         k = rms_norm(k, kn, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    if cache is None:
-        bias = _mask_bias(positions, positions, causal, window)
-        out = sdpa(cfg, q, k, v, bias)
-        new_cache = None
-    else:
-        b, s = x.shape[:2]
-        t = cache.k.shape[1]
-        cl = int(cache_len)
-        if s >= t:
-            # Prefill longer than the cache (SWA ring buffer): attend within
-            # the current sequence, then store the last t tokens at slots
-            # pos % t (ring convention shared with the decode path).
-            bias = _mask_bias(positions, positions, causal, window)
-            out = sdpa(cfg, q, k, v, bias)
-            shift = (cl + s - t) % t if t > 0 else 0
-            ck = torch.roll(k[:, -t:].to(cache.k.dtype), shift, dims=1)
-            cv = torch.roll(v[:, -t:].to(cache.v.dtype), shift, dims=1)
-        else:
-            # ring write: token with absolute position p lives at slot p % t
-            idx = cl % t
-            ck = _ring_update(cache.k, k.to(cache.k.dtype), idx)
-            cv = _ring_update(cache.v, v.to(cache.v.dtype), idx)
-            # absolute position of each slot given newest entry at idx+s-1
-            newest = cl + s - 1
-            slot = torch.arange(t, device=x.device)
-            k_pos = newest - torch.remainder(idx + s - 1 - slot, t)
-            k_pos = k_pos[None].expand(b, t)
-            bias = _mask_bias(positions, k_pos, causal, window)
-            out = sdpa(cfg, q, ck.to(q.dtype), cv.to(q.dtype), bias)
-        new_cache = KVCache(ck, cv)
+    out = sdpa(cfg, q, k, v, _mask_bias(positions, positions, causal,
+                                        window))
     out = tok_einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
     if _heads_split(shards):
         out = shards.g(out)
-    return out, new_cache
+    return out, None
 
 
-def _update_slice(cache: torch.Tensor, new: torch.Tensor,
-                  idx: int) -> torch.Tensor:
-    """A copy of cache (B, T, ...) with new (B, S, ...) written at slots
-    [idx, idx+S), the start clamped into [0, T - S]."""
-    t, s = cache.shape[1], new.shape[1]
-    start = min(max(idx, 0), t - s)
-    out = cache.clone()
-    out[:, start:start + s] = new
+# ----------------------------------------------------------------------
+# attention over a cache, on one device or context-parallel over a mesh
+# ----------------------------------------------------------------------
+
+def _gather_heads(parts, shards):
+    """Tensors (B, S, heads of this rank, ...) all-gathered over "model"
+    along their head dim, in one call: (B, S, every head, ...) each, in
+    head order (a rank's heads are a contiguous run)."""
+    widths = [t.shape[2] for t in parts]
+    g = all_gather(torch.cat(parts, 2)[:, :, None], 2, shards.mesh, MODEL)
+    out, lo = [], 0
+    for w in widths:
+        t = g[:, :, :, lo:lo + w]
+        out.append(t.reshape(t.shape[0], t.shape[1], -1, *t.shape[4:]))
+        lo += w
     return out
 
 
-def _ring_update(cache, new, idx):
-    """Write `new` (B, S, ...) at ring slots [idx, idx+S) mod T. A decode
-    step (S = 1) and a prefill at cache_len 0 with S <= T never wrap."""
-    return _update_slice(cache, new, idx)
+def _all_heads(p, cfg: ArchConfig, x, shards):
+    """q (B,S,H,D), k, v (B,S,Hk,D) of every head on every "model" rank:
+    the heads split over "model" computed column-parallel and gathered;
+    kv heads replicated over "model" (or no mesh) computed whole."""
+    q, k, v = (tok_einsum("bse,ehd->bshd", x, p[w].to(x.dtype))
+               for w in ("wq", "wk", "wv"))
+    split = [_heads_split(shards, w) for w in ("wq", "wk", "wv")]
+    if not any(split):
+        return q, k, v
+    it = iter(_gather_heads([t for t, s in zip((q, k, v), split) if s],
+                            shards))
+    return tuple(next(it) if s else t for t, s in zip((q, k, v), split))
+
+
+def _merge_partials(acc, m, l, shards):
+    """The partial softmaxes of every "model" rank (``_online_partial``'s
+    acc, m, l), all-gathered in one call and merged by their log-sum-exp:
+    (b,qc,hk,g,dv)."""
+    packed = torch.cat([acc.float(), m[..., None], l[..., None]], dim=-1)
+    allp = all_gather(packed[None], 0, shards.mesh, MODEL)
+    accs, ms, ls = allp[..., :-2], allp[..., -2], allp[..., -1]
+    w = torch.exp(ms - torch.amax(ms, dim=0))
+    num = torch.sum(accs * w[..., None], dim=0)
+    den = torch.clamp(torch.sum(ls * w, dim=0), min=1e-30)
+    return (num / den[..., None]).to(acc.dtype).permute(0, 3, 1, 2, 4)
+
+
+def _cache_attend(cfg: ArchConfig, q, k, v, bias, scale, shards,
+                  seq_split: bool):
+    """q (B,S,H,Dq) every head; k (B,Tl,Hk,Dq), v (B,Tl,Hk,Dv) the rank's
+    slots (the whole cache when not ``seq_split``); bias (B,S,Tl). Not
+    split: the one-device attention (``sdpa``'s chunked or einsum form).
+    Split: the online softmax over the rank's slots (in the config's
+    chunks when chunked and S > 1), merged over "model": (B,S,H,Dv)."""
+    b, s, h, d = q.shape
+    hk, tl = k.shape[2], k.shape[1]
+    qg = q.reshape(b, s, hk, h // hk, d)
+    chunked = cfg.attention_impl == "chunked" and s > 1
+    if not seq_split:
+        out = _sdpa_chunked(qg, k, v, bias, scale, cfg.attn_q_chunk,
+                            cfg.attn_kv_chunk) if chunked \
+            else _sdpa_einsum(qg, k, v, bias, scale)
+        return out.reshape(b, s, h, out.shape[-1])
+    qc, kc, nq, nk = _chunk_sizes(
+        s, tl, block_of(cfg.attn_q_chunk, s, q.device),
+        block_of(cfg.attn_kv_chunk, tl, q.device)) if chunked \
+        else (s, tl, 1, 1)
+    outs = []
+    for iq in range(nq):
+        qs = slice(iq * qc, (iq + 1) * qc)
+        acc, m, l = _online_partial(qg[:, qs], (
+            (k[:, ik * kc:(ik + 1) * kc], v[:, ik * kc:(ik + 1) * kc],
+             bias[:, qs, ik * kc:(ik + 1) * kc], True)
+            for ik in range(nk)), scale)
+        outs.append(_merge_partials(acc, m, l, shards))
+    out = torch.cat(outs, dim=1) if nq > 1 else outs[0]
+    return out.reshape(b, s, h, out.shape[-1])
+
+
+def _slots(cache_t: torch.Tensor, shards, seq_split: bool):
+    """(global slot count, this rank's first slot) of a cache whose dim 1
+    is its slots (split over "model" when ``seq_split``)."""
+    tl = cache_t.shape[1]
+    if not seq_split:
+        return tl, 0
+    return tl * shards.tp, shards.mi * tl
+
+
+def _update_shard(cache: torch.Tensor, new: torch.Tensor, idx: int,
+                  t: int, off: int) -> torch.Tensor:
+    """A copy of the slots [off, off + Tl) of a cache of ``t`` slots (the
+    whole cache: off 0, Tl = t) with the rows of new (B, S, ...) that land
+    there written at slots [idx, idx + S), the start clamped into [0, t -
+    S] as ``dynamic_update_slice`` does (a decode step, S = 1, and a
+    prefill at cache_len 0 with S <= t never wrap a ring); the cache itself
+    when none land there."""
+    s, tl = new.shape[1], cache.shape[1]
+    start = min(max(idx, 0), t - s)
+    lo, hi = max(start, off), min(start + s, off + tl)
+    if lo >= hi:
+        return cache
+    out = cache.clone()
+    out[:, lo - off:hi - off] = new[:, lo - start:hi - start]
+    return out
+
+
+def _own_heads_out(p, out, shards, wo: str = "wo", pre=None):
+    """The rank's heads of ``out`` (B,S,H,...) through ``pre`` (if given)
+    and ``wo``, "g" over "model" when the heads are split."""
+    split = _heads_split(shards, wo)
+    if split:
+        hl = p[wo].shape[0]
+        out = out[:, :, shards.mi * hl:(shards.mi + 1) * hl]
+    if pre is not None:
+        out = pre(out)
+    out = tok_einsum("bshd,hde->bse", out, p[wo].to(out.dtype))
+    return shards.g(out) if split else out
+
+
+def _gqa_cache(p, cfg: ArchConfig, x, positions, causal, cache,
+               cache_len, shards, seq_split: bool):
+    """``gqa_forward`` with a cache, without a mesh (``shards`` None) or
+    over one (see the module docstring): (out (B,S,E), the new cache, this
+    rank's shard of it)."""
+    q, k, v = _all_heads(p, cfg, x, shards)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.window if cfg.attn_kind == "swa" else 0
+    b, s = x.shape[:2]
+    t, off = _slots(cache.k, shards, seq_split)
+    tl = cache.k.shape[1]
+    cl = int(cache_len)
+    if s >= t:
+        # a prompt at least as long as the cache (an SWA ring): attend
+        # within the prompt, then keep its last t tokens at slots pos % t
+        # (the ring convention of the decode step), this rank's of them
+        bias = _mask_bias(positions, positions, causal, window)
+        out = sdpa(cfg, q, k, v, bias)
+        shift = (cl + s - t) % t if t > 0 else 0
+        ck = torch.roll(k[:, -t:].to(cache.k.dtype), shift,
+                        dims=1)[:, off:off + tl]
+        cv = torch.roll(v[:, -t:].to(cache.v.dtype), shift,
+                        dims=1)[:, off:off + tl]
+    else:
+        # ring write: the token at absolute position p lives at slot p % t
+        idx = cl % t
+        ck = _update_shard(cache.k, k.to(cache.k.dtype), idx, t, off)
+        cv = _update_shard(cache.v, v.to(cache.v.dtype), idx, t, off)
+        # each slot's absolute position, the newest entry at idx + s - 1
+        newest = cl + s - 1
+        slot = off + torch.arange(tl, device=x.device)
+        k_pos = (newest - torch.remainder(idx + s - 1 - slot, t))[None] \
+            .expand(b, tl)
+        bias = _mask_bias(positions, k_pos, causal, window)
+        out = _cache_attend(cfg, q, ck.to(q.dtype), cv.to(q.dtype), bias,
+                            1.0 / math.sqrt(q.shape[-1]), shards, seq_split)
+    return _own_heads_out(p, out, shards), KVCache(ck, cv)
 
 
 # ----------------------------------------------------------------------
@@ -369,36 +515,58 @@ def mla_forward(p, cfg: ArchConfig, x, positions, causal=True,
     return shards.g(out) if split else out
 
 
+def _latent_attend(q_lat, q_rope, c_kv, k_rope, bias, scale):
+    """Absorbed attention over a whole latent cache (no mesh, or a mesh
+    that does not split its slots): the latent and rotary scores as two
+    products, summed; (B,S,H,dc)."""
+    sc = (torch.einsum("bshc,btc->bhst", q_lat, c_kv)
+          + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
+    sc = sc.float() * scale
+    pr = torch.softmax(sc + bias[:, None], dim=-1).to(q_lat.dtype)
+    return torch.einsum("bhst,btc->bshc", pr, c_kv)
+
+
 def mla_decode(p, cfg: ArchConfig, x, positions, cache: MLACache,
-               cache_len):
+               cache_len, shards=None, seq_split: bool = False):
     """Absorbed decode: attention runs entirely in the dc-dim latent space —
     the cache stores only (c_kv, k_rope): (dc + dr) per token instead of
-    2*H*D."""
+    2*H*D. Over a mesh (``shards``): the rank's heads' absorbed queries
+    gathered over "model", the latents (computed whole: their weights are
+    replicated over "model") written by the rank owning their slots; over
+    slots split by "model" (``seq_split``) the online softmax over the
+    rank's slots (the queries' latent and rotary parts side by side
+    against the latents and rotary keys, one "KV head") merged over
+    "model"; then the rank's heads through ``w_uv`` and ``wo`` and "g"."""
     b, s, _ = x.shape
     cl = int(cache_len)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     # absorb W_UK into q: q_lat[bshc] = q_nope . W_UK
     q_lat = tok_einsum("bshd,chd->bshc", q_nope, p["w_uk"].to(x.dtype))
-
+    if _heads_split(shards, "w_uk"):
+        q, = _gather_heads([torch.cat([q_lat, q_rope], dim=-1)], shards)
+        q_lat, q_rope = q.split([q_lat.shape[-1], q_rope.shape[-1]], -1)
     c_new = tok_einsum("bse,ec->bsc", x, p["w_dkv"].to(x.dtype))
     kr_new = apply_rope(tok_einsum("bse,ed->bsd", x,
                                      p["w_kr"].to(x.dtype)),
                         positions, cfg.rope_theta)
-    c_kv = _update_slice(cache.c_kv, c_new.to(cache.c_kv.dtype), cl)
-    k_rope = _update_slice(cache.k_rope, kr_new.to(cache.k_rope.dtype), cl)
-
-    t = c_kv.shape[1]
-    d_full = cfg.qk_nope_dim + cfg.qk_rope_dim
-    scale = 1.0 / math.sqrt(d_full)
-    sc = (torch.einsum("bshc,btc->bhst", q_lat, c_kv.to(x.dtype))
-          + torch.einsum("bshd,btd->bhst", q_rope, k_rope.to(x.dtype)))
-    sc = sc.float() * scale
+    t, off = _slots(cache.c_kv, shards, seq_split)
+    tl = cache.c_kv.shape[1]
+    c_kv = _update_shard(cache.c_kv, c_new.to(cache.c_kv.dtype), cl, t, off)
+    k_rope = _update_shard(cache.k_rope, kr_new.to(cache.k_rope.dtype), cl,
+                           t, off)
     idx = positions[:, 0] if positions.dim() == 2 else positions
-    k_pos = torch.arange(t, device=x.device)[None].expand(b, t)
+    k_pos = (off + torch.arange(tl, device=x.device))[None].expand(b, tl)
     bias = _mask_bias(positions, k_pos, True,
                       k_len_valid=(idx + s)[:, None, None])
-    pr = torch.softmax(sc + bias[:, None], dim=-1).to(x.dtype)
-    out_lat = torch.einsum("bhst,btc->bshc", pr, c_kv.to(x.dtype))
-    out = tok_einsum("bshc,chd->bshd", out_lat, p["w_uv"].to(x.dtype))
-    out = tok_einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if seq_split:
+        out_lat = _cache_attend(
+            cfg, torch.cat([q_lat, q_rope], dim=-1),
+            torch.cat([c_kv, k_rope], dim=-1).to(x.dtype)[:, :, None],
+            c_kv.to(x.dtype)[:, :, None], bias, scale, shards, True)
+    else:
+        out_lat = _latent_attend(q_lat, q_rope, c_kv.to(x.dtype),
+                                 k_rope.to(x.dtype), bias, scale)
+    out = _own_heads_out(p, out_lat, shards, pre=lambda o: tok_einsum(
+        "bshc,chd->bshd", o, p["w_uv"].to(x.dtype)))
     return out, MLACache(c_kv, k_rope)

@@ -157,6 +157,13 @@ def abstract_params(init_fn) -> Tuple[Params, Axes]:
 TOKEN_BLOCK = 64
 
 
+def block_of(block: int, total: int, device) -> int:
+    """The block a loop over ``total`` items takes: ``block``, or on the
+    meta device (the dry-run's shapes-only step) all of them in one, whose
+    products count the blocks' operations alike."""
+    return total if torch.device(device).type == "meta" else block
+
+
 def tok_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(eq, x, w)`` for x (B, S, ...) token rows and a weight
     w with no token dims, computed in blocks of TOKEN_BLOCK tokens (the
@@ -167,8 +174,8 @@ def tok_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pad = (-m) % TOKEN_BLOCK
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad, *rows.shape[1:]))])
-    outs = [torch.einsum(eq, blk[None], w)[0]
-            for blk in rows.split(TOKEN_BLOCK)]
+    outs = [torch.einsum(eq, blk[None], w)[0] for blk in rows.split(
+        block_of(TOKEN_BLOCK, rows.shape[0], rows.device))]
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:m].reshape(b, s, *out.shape[1:])
 

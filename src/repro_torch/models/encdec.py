@@ -14,7 +14,16 @@ runs the Megatron branches: self-attention and the MLP through
 ``gqa_forward`` and ``mlp_forward``; cross-attention's q, k and v
 column-parallel over the heads ("f" on the decoder's and on the encoder's
 input), ``wo`` row-parallel and "g" after it. ``local_batch`` splits the
-frames with the tokens. Decode and prefill over a mesh are not ported.
+frames with the tokens.
+
+Decode and prefill over a mesh (``models.decoding``) run the encoder and
+the decoder's cross-attention and MLP on those same branches, the
+decoder's self-attention context-parallel over its KV cache
+(``models.attention``). ``enc_out`` stays in the cache laid out as
+``sharding.cache_specs`` lays it out (as the JAX dry-run's heuristic
+does: enc_seq on the batch axes, d_model on "model"); a decode step
+all-gathers it whole once and reads its rows. Over a mesh the frames
+must number ``cfg.enc_seq``, the cache's enc_out length.
 """
 
 from __future__ import annotations
@@ -25,13 +34,15 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from ..distributed.collectives import all_gather
+from ..distributed.sharding import local_shard
 from .attention import KVCache, gqa_forward, init_gqa, sdpa
 from .common import (ParamCollector, ScanBlock, StackedCollector,
                      constrain_act, dtype_of, layer_slices, local_batch,
                      model_device, positions_of, rms_norm, slice_layer,
                      tok_einsum)
-from .lm import (_embed, _logits, gather_head, no_mesh_decode,
-                 token_loss)
+from .decoding import MeshStep, local_zeros, one_device
+from .lm import KV_KEEP, _embed, _head, _logits, gather_head, token_loss
 from .mlp import init_mlp, mlp_forward
 
 
@@ -126,15 +137,17 @@ def _enc_kv(p, cfg: ArchConfig, enc_out, shards=None):
     hq = p["xattn/wq"].shape[1]
     group = cfg.n_heads // cfg.n_kv_heads
     kv = (shards.mi * hq + torch.arange(hq, device=e.device)) // group
-    lo, hi = int(kv[0]), int(kv[-1]) + 1
+    lo, hi = shards.mi * hq // group, (shards.mi * hq + hq - 1) // group + 1
     return tuple(tok_einsum("bse,ehd->bshd", e, shards.f(p[w])[:, lo:hi]
                             .to(e.dtype))[:, :, kv - lo]
                  for w in ("xattn/wk", "xattn/wv"))
 
 
-def _dec_block(cfg: ArchConfig, mesh=None, shards=None):
+def _dec_block(cfg: ArchConfig, mesh=None, shards=None,
+               seq_split: bool = False):
     """One decoder layer: block(p, (x, enc_out, positions), cache_slice,
-    cache_len) -> ((x, enc_out, positions), new self-attention cache)."""
+    cache_len) -> ((x, enc_out, positions), new self-attention cache);
+    ``seq_split``: a mesh cache's slots split over "model"."""
     sub = lambda name: shards and shards.sub(name)
 
     def block(p, carry, cache_slice=None, cache_len=None):
@@ -145,7 +158,7 @@ def _dec_block(cfg: ArchConfig, mesh=None, shards=None):
         a, new_cache = gqa_forward(
             slice_layer(p, "attn"), cfg, h, positions, causal=True,
             cache=None if cache_slice is None else KVCache(*cache_slice),
-            cache_len=cache_len, shards=sub("attn"))
+            cache_len=cache_len, shards=sub("attn"), seq_split=seq_split)
         x = x + a
         h = rms_norm(x, p["ln_xattn"], cfg.norm_eps)
         xk, xv = _enc_kv(p, cfg, enc_out, shards)
@@ -157,12 +170,14 @@ def _dec_block(cfg: ArchConfig, mesh=None, shards=None):
 
 
 def _decoder(params, cfg: ArchConfig, tokens, enc_out, positions,
-             self_cache=None, cache_len=None, mesh=None, shards=None):
+             self_cache=None, cache_len=None, mesh=None, shards=None,
+             seq_split: bool = False):
     """The decoder's final-normed hidden states (B, S, E) and, with
     ``self_cache`` ((L, B, T, Hkv, D) K and V), the new cache;
-    ``shards``: the params' layout (training)."""
+    ``shards``: the params' layout."""
     x = constrain_act(_embed(params, cfg, tokens, shards), mesh)
-    block = _dec_block(cfg, mesh, shards and shards.sub("dec", stacked=True))
+    block = _dec_block(cfg, mesh, shards and shards.sub("dec", stacked=True),
+                       seq_split)
     stacked = slice_layer(params, "dec")
     carry = (x, enc_out, positions)
     if self_cache is None:
@@ -218,32 +233,77 @@ def encdec_init_cache(cfg: ArchConfig, batch: int, max_len: int,
                     device=dev))
 
 
+ENC_KEEPS = (KV_KEEP, KV_KEEP, {})     # enc_out gathered whole
+
+
+def _mesh_step(mesh, shards, cache_specs):
+    return None if one_device(mesh) else MeshStep(mesh, shards, cache_specs)
+
+
 def encdec_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
-                   cache_dtype=torch.bfloat16):
+                   cache_dtype=torch.bfloat16, shards=None,
+                   cache_specs=None):
     """Encode the frames and run the decoder over the prompt, building the
-    self-attention cache; ``enc_out`` is stored in ``cache_dtype``."""
-    no_mesh_decode(mesh)
-    enc_out = _encode(params, cfg, batch["frames"])
-    cache = encdec_init_cache(cfg, batch["tokens"].shape[0], max_len,
-                              cache_dtype, device=enc_out.device)
-    cache = cache._replace(enc_out=enc_out.to(cache_dtype))
-    return encdec_decode_step(params, cfg, cache, batch["tokens"], 0)
+    self-attention cache; ``enc_out`` is stored in ``cache_dtype``. Over
+    ``mesh``: every row's logits and this rank's cache shards (see the
+    module docstring)."""
+    step = _mesh_step(mesh, shards, cache_specs)
+    if step is None:
+        enc_out = _encode(params, cfg, batch["frames"])
+        cache = encdec_init_cache(cfg, batch["tokens"].shape[0], max_len,
+                                  cache_dtype, device=enc_out.device)
+        cache = cache._replace(enc_out=enc_out.to(cache_dtype))
+        return encdec_decode_step(params, cfg, cache, batch["tokens"], 0)
+    b = batch["tokens"].shape[0]
+    if batch["frames"].shape[1] != cfg.enc_seq:
+        raise ValueError(f"over a mesh the frames must number enc_seq "
+                         f"({cfg.enc_seq}), the cache's enc_out length; "
+                         f"got {batch['frames'].shape[1]}")
+    rows = step.rows(batch)
+    enc_out = _encode(params, cfg, rows["frames"], mesh,
+                      shards.sub("enc", stacked=True)).to(cache_dtype)
+    if not step.shared:
+        enc_out = all_gather(enc_out, 0, mesh, step.batch)
+    meta = encdec_init_cache(cfg, b, max_len, cache_dtype, device="meta")
+    cache = local_zeros(meta, cache_specs, mesh, enc_out.device)
+    cache = cache._replace(enc_out=local_shard(enc_out, cache_specs[2],
+                                               mesh).contiguous())
+    return encdec_decode_step(params, cfg, cache, batch["tokens"], 0,
+                              mesh=mesh, shards=shards,
+                              cache_specs=cache_specs)
 
 
 def encdec_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
-                       mesh=None):
+                       mesh=None, shards=None, cache_specs=None):
     """tokens (B, S) at positions cache_len.. -> (logits (B, V) of the last
-    position, new cache). The cache passed in is left as it was."""
-    no_mesh_decode(mesh)
+    position, new cache). The cache passed in is left as it was. Over
+    ``mesh``: as ``lm.lm_decode_step`` (see the module docstring)."""
+    step = _mesh_step(mesh, shards, cache_specs)
     cl = int(cache_len)
+    if step is None:
+        b, s = tokens.shape
+        enc_out = cache.enc_out.to(dtype_of(cfg.compute_dtype))
+        x, new_cache = _decoder(params, cfg, tokens, enc_out,
+                                positions_of(b, s, cl, enc_out.device),
+                                self_cache=(cache.self_k, cache.self_v),
+                                cache_len=cl)
+        logits = _logits(params, cfg, x[:, -1:])[:, -1]
+        return logits, EncDecCache(new_cache[0], new_cache[1], cache.enc_out)
+    tokens = step.rows({"tokens": tokens})["tokens"]
+    params = gather_head(params, shards)
+    (k, bk), (v, bv), (enc, _) = (step.working(c, sp, keep) for c, sp, keep
+                                  in zip(cache, cache_specs, ENC_KEEPS))
+    enc_out = step.whole_rows(enc).to(dtype_of(cfg.compute_dtype))
+    seq_split = bk[2] is None and step.split(cache_specs[0], 2)
     b, s = tokens.shape
-    enc_out = cache.enc_out.to(dtype_of(cfg.compute_dtype))
     x, new_cache = _decoder(params, cfg, tokens, enc_out,
                             positions_of(b, s, cl, enc_out.device),
-                            self_cache=(cache.self_k, cache.self_v),
-                            cache_len=cl)
-    logits = _logits(params, cfg, x[:, -1:])[:, -1]
-    return logits, EncDecCache(new_cache[0], new_cache[1], cache.enc_out)
+                            self_cache=(k, v), cache_len=cl, mesh=mesh,
+                            shards=shards, seq_split=seq_split)
+    logits = _logits(params, cfg, x[:, -1:], shards)[:, -1]
+    logits = step.logits(logits, _head(params, cfg, shards)[1])
+    return logits, EncDecCache(step.finish(new_cache[0], bk),
+                               step.finish(new_cache[1], bv), cache.enc_out)
 
 
 __all__ = ["EncDecCache", "encdec_decode_step", "encdec_init_cache",

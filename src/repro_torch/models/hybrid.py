@@ -15,7 +15,16 @@ Over a training mesh (``shards``) each mamba layer gathers its leaves
 whole inside its rematerialized block and every "model" rank computes it
 whole (see ``ssm_lm``); the shared block's weights are gathered over their
 FSDP axes once a step and it runs the Megatron branches of ``gqa_forward``
-and ``mlp_forward``. Decode and prefill over a mesh are not ported.
+and ``mlp_forward``.
+
+Decode and prefill over a mesh (``models.decoding``) gather each mamba2
+layer whole, as training does, and its states whole over "model" once a
+step (``sharding.cache_specs`` splits their longest dim, which mamba2's
+heads do not follow: the conv state's x, B and C channels side by side,
+the ssm state's N); every "model" rank computes the layer whole and
+keeps its shard of the new states. The shared block's weights are
+gathered over their FSDP axes once a step and its KV cache is
+context-parallel (``models.attention``).
 """
 
 from __future__ import annotations
@@ -30,8 +39,8 @@ from .attention import KVCache, gqa_forward, init_gqa
 from .common import (ParamCollector, ScanBlock, StackedCollector,
                      constrain_act, dtype_of, layer_slices, local_batch,
                      merge, positions_of, rms_norm, slice_layer)
-from .lm import (_embed, _logits, gather_head, no_mesh_decode,
-                 token_loss)
+from .decoding import MeshStep, local_zeros, one_device
+from .lm import KV_KEEP, _embed, _head, _logits, gather_head, token_loss
 from .mamba import (Mamba2State, init_mamba2, mamba2_decode, mamba2_forward,
                     mamba2_init_state)
 from .mlp import init_mlp, mlp_forward
@@ -93,14 +102,15 @@ def _mamba_block(cfg: ArchConfig, mesh=None, shards=None):
 
 
 def _shared_attn(params, cfg: ArchConfig, x, positions, cache=None,
-                 cache_len=None, shards=None):
-    """The shared block; ``shards``: its layout (keys under "shared/")."""
+                 cache_len=None, shards=None, seq_split: bool = False):
+    """The shared block; ``shards``: its layout (keys under "shared/");
+    with a cache over a mesh ``seq_split`` as ``gqa_forward``'s."""
     p = slice_layer(params, "shared")
     sub = lambda name: shards and shards.sub(name)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     a, new_cache = gqa_forward(slice_layer(p, "attn"), cfg, h, positions,
                                causal=True, cache=cache, cache_len=cache_len,
-                               shards=sub("attn"))
+                               shards=sub("attn"), seq_split=seq_split)
     x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     return x + mlp_forward(slice_layer(p, "mlp"), cfg, h, sub("mlp")), \
@@ -152,15 +162,47 @@ def hybrid_init_cache(cfg: ArchConfig, batch: int, max_len: int,
             torch.zeros(kv, dtype=dtype, device=dev))
 
 
+# the states' keeps (gathered whole over "model"), then the shared KV's
+KEEPS = ({1: "batch"}, {1: "batch"}, KV_KEEP, KV_KEEP)
+
+
+class _Mesh:
+    """A hybrid decode's view of the mesh: the step, the mamba layers' and
+    the shared block's layouts, the shared block's weights gathered over
+    their FSDP axes, whether the KV slots are split over "model"."""
+
+    def __init__(self, params, mesh, shards, cache_specs):
+        self.step = MeshStep(mesh, shards, cache_specs)
+        self.layers = shards.sub("layers", stacked=True)
+        self.shared = shards.sub("shared")
+        self.params = dict(params, **merge("shared", self.shared.gather(
+            slice_layer(params, "shared"))))
+        self.backs = [self.step.back(sp, k)
+                      for sp, k in zip(cache_specs, KEEPS)]
+        self.seq_split = self.backs[2][2] is None and self.step.split(
+            cache_specs[2], 2)
+
+
+def _plan(params, mesh, shards, cache_specs):
+    """(params with the head and shared block gathered, _Mesh or None)."""
+    if one_device(mesh):
+        return params, None
+    m = _Mesh(gather_head(params, shards), mesh, shards, cache_specs)
+    return m.params, m
+
+
 def _one_token(params, cfg: ArchConfig, x, positions, conv_c, ssm_c, ck, cv,
-               cache_len, layers=None):
+               cache_len, layers=None, m: Optional[_Mesh] = None):
     """Single-token pass through the full hybrid stack. x (B, 1, E).
-    ``layers``: the stack's ``layer_slices`` (made here if not given)."""
+    ``layers``: the stack's ``layer_slices`` (made here if not given);
+    ``m``: a mesh step's ``_Mesh`` (the states whole over "model")."""
     if layers is None:
         layers = layer_slices(slice_layer(params, "layers"))
     new_conv, new_ssm, new_k, new_v = [], [], [], []
     for gi, (lo, group, attn) in enumerate(_groups(cfg, layers)):
         for i, p in enumerate(group, start=lo):
+            if m is not None:
+                p = m.layers.gather_whole(p)
             h = rms_norm(x, p["ln"], cfg.norm_eps)
             y, st = mamba2_decode(slice_layer(p, "mamba"), cfg, h,
                                   Mamba2State(conv_c[i], ssm_c[i]))
@@ -170,7 +212,9 @@ def _one_token(params, cfg: ArchConfig, x, positions, conv_c, ssm_c, ck, cv,
         if attn:
             x, kvc = _shared_attn(params, cfg, x, positions,
                                   cache=KVCache(ck[gi], cv[gi]),
-                                  cache_len=cache_len)
+                                  cache_len=cache_len,
+                                  shards=m and m.shared,
+                                  seq_split=m is not None and m.seq_split)
             new_k.append(kvc.k)
             new_v.append(kvc.v)
     return x, (torch.stack(new_conv), torch.stack(new_ssm),
@@ -178,20 +222,37 @@ def _one_token(params, cfg: ArchConfig, x, positions, conv_c, ssm_c, ck, cv,
 
 
 def hybrid_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
-                   cache_dtype=torch.bfloat16):
+                   cache_dtype=torch.bfloat16, shards=None,
+                   cache_specs=None):
     """Parallel prefill: the chunked mamba2 forward (with its states) and
     the shared block's KV cache built for the whole prompt. Returns (last
-    position's logits, cache as ``hybrid_init_cache``'s)."""
-    no_mesh_decode(mesh)
+    position's logits, cache as ``hybrid_init_cache``'s); over ``mesh``
+    every row's logits and this rank's cache shards (see the module
+    docstring)."""
+    params, m = _plan(params, mesh, shards, cache_specs)
     tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens)
+    if m is not None:
+        tokens = m.step.rows(batch)["tokens"]
+    else:
+        shards = None
+    x = _embed(params, cfg, tokens, shards)
     b, s = tokens.shape
     positions = positions_of(b, s, 0, x.device)
     kv = (b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if m is not None:
+        # the KV cache's working shard: its slots split as they stay
+        spec = tuple(None if bk is not None else e
+                     for e, bk in zip(cache_specs[2], m.backs[2]))
+        whole = (1, batch["tokens"].shape[0]) + kv[1:]
+        kv0 = local_zeros((torch.empty(whole, dtype=cache_dtype,
+                                       device="meta"),),
+                          ((None,) + spec[1:],), mesh, x.device)[0][0]
     layers = layer_slices(slice_layer(params, "layers"))
     new_conv, new_ssm, new_k, new_v = [], [], [], []
     for _, group, attn in _groups(cfg, layers):
         for p in group:
+            if m is not None:
+                p = m.layers.gather_whole(p)
             h = rms_norm(x, p["ln"], cfg.norm_eps)
             y, st = mamba2_forward(slice_layer(p, "mamba"), cfg, h,
                                    return_state=True)
@@ -199,36 +260,54 @@ def hybrid_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
             new_conv.append(st.conv)
             new_ssm.append(st.ssm)
         if attn:
-            kv0 = KVCache(torch.zeros(kv, dtype=cache_dtype, device=x.device),
-                          torch.zeros(kv, dtype=cache_dtype, device=x.device))
-            x, kvc = _shared_attn(params, cfg, x, positions, cache=kv0,
-                                  cache_len=0)
+            if m is None:
+                kv0 = torch.zeros(kv, dtype=cache_dtype, device=x.device)
+            x, kvc = _shared_attn(params, cfg, x, positions,
+                                  cache=KVCache(kv0, kv0), cache_len=0,
+                                  shards=m and m.shared,
+                                  seq_split=m is not None and m.seq_split)
             new_k.append(kvc.k)
             new_v.append(kvc.v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x[:, -1:])[:, -1]
-    return logits, (torch.stack(new_conv), torch.stack(new_ssm),
-                    torch.stack(new_k), torch.stack(new_v))
+    logits = _logits(params, cfg, x[:, -1:], shards)[:, -1]
+    cache = (torch.stack(new_conv), torch.stack(new_ssm),
+             torch.stack(new_k), torch.stack(new_v))
+    if m is None:
+        return logits, cache
+    logits = m.step.logits(logits, _head(params, cfg, shards)[1])
+    return logits, tuple(m.step.finish(t, bk)
+                         for t, bk in zip(cache, m.backs))
 
 
 def hybrid_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
-                       mesh=None):
+                       mesh=None, shards=None, cache_specs=None):
     """tokens (B, S) at positions cache_len.. -> (logits (B, V) of the last
     position, new cache): S = 1 decode, S > 1 the token steps one after
     another (the mamba recurrence is sequential at inference). The cache
-    passed in is left as it was."""
-    no_mesh_decode(mesh)
+    passed in is left as it was. Over ``mesh``: as
+    ``lm.lm_decode_step`` (see the module docstring)."""
+    params, m = _plan(params, mesh, shards, cache_specs)
+    if m is not None:
+        tokens = m.step.rows({"tokens": tokens})["tokens"]
+        cache = tuple(m.step.working(c, sp, k)[0]
+                      for c, sp, k in zip(cache, cache_specs, KEEPS))
+    else:
+        shards = None
     cl = int(cache_len)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, shards)
     b, s = tokens.shape
     layers = layer_slices(slice_layer(params, "layers"))
     for t in range(s):
         xt, cache = _one_token(params, cfg, x[:, t:t + 1],
                                positions_of(b, 1, cl + t, x.device), *cache,
-                               cl + t, layers=layers)
+                               cl + t, layers=layers, m=m)
     x = rms_norm(xt, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x)[:, -1]
-    return logits, cache
+    logits = _logits(params, cfg, x, shards)[:, -1]
+    if m is None:
+        return logits, cache
+    logits = m.step.logits(logits, _head(params, cfg, shards)[1])
+    return logits, tuple(m.step.finish(t, bk)
+                         for t, bk in zip(cache, m.backs))
 
 
 __all__ = ["hybrid_decode_step", "hybrid_init_cache", "hybrid_lm_loss",

@@ -21,7 +21,15 @@ row max and the exp-sum all-reduced over "model"). The loss is the global
 token mean: the masked sum and the count are summed over the batch axes
 (not the per-rank means: a VLM batch's masked counts differ by rank);
 ``token_loss`` is that tail, which the ssm, hybrid and audio families'
-losses share. Decode over a mesh is not ported (ROADMAP queue A).
+losses share.
+
+Decode and prefill over a mesh (``models.decoding``) keep the weights in
+the training layout and gather each layer's FSDP shards as the loss does;
+attention over the cache is context-parallel (``models.attention``), the
+MLP Megatron's, the MoE layer ``moe_forward`` over the mesh (expert
+parallel, with its capacity: drop-free while a rank's tokens x top_k <= 8
+x experts, as in decode), and the logits vocab-parallel, gathered whole
+for every row on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from .common import (ParamCollector, ScanBlock, StackedCollector,
                      constrain_act, dtype_of, layer_slices, local_batch,
                      model_device, remat_block, rms_norm, slice_layer,
                      tok_einsum)
+from .decoding import MeshStep, local_zeros, one_device
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward, moe_forward_ref
 
@@ -124,24 +133,35 @@ def _block_train(cfg: ArchConfig, mesh, shards=None):
     return block
 
 
-def _block_decode(cfg: ArchConfig, mesh):
+def _block_decode(cfg: ArchConfig, mesh, shards=None,
+                  seq_split: bool = False):
+    """The decode block; over a mesh ``shards`` is one layer's layout (its
+    FSDP shards gathered first thing) and ``seq_split`` says whether the
+    cache's slots are split over "model"."""
+    sub = lambda name: shards and shards.sub(name)
+
     def block(p, carry, cache_slice, cache_len):
         x, positions = carry
+        if shards is not None:
+            p = shards.gather(p)
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
         ap = slice_layer(p, "attn")
         if cfg.attn_kind == "mla":
             a, new_cache = mla_decode(ap, cfg, h, positions,
-                                      MLACache(*cache_slice), cache_len)
+                                      MLACache(*cache_slice), cache_len,
+                                      shards=sub("attn"), seq_split=seq_split)
         else:
             a, new_cache = gqa_forward(ap, cfg, h, positions, causal=True,
                                        cache=KVCache(*cache_slice),
-                                       cache_len=cache_len)
+                                       cache_len=cache_len,
+                                       shards=sub("attn"),
+                                       seq_split=seq_split)
         x = x + a
         h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         if "moe/router" in p:
-            m, _ = _moe(p, cfg, h, mesh)
+            m, _ = _moe(p, cfg, h, mesh, shards)
         else:
-            m = mlp_forward(slice_layer(p, "mlp"), cfg, h)
+            m = mlp_forward(slice_layer(p, "mlp"), cfg, h, sub("mlp"))
         return (constrain_act(x + m, mesh), positions), tuple(new_cache)
     return block
 
@@ -250,13 +270,6 @@ def gather_head(params, shards):
         {k: params[k] for k in ("embed", "lm_head") if k in params}))
 
 
-def no_mesh_decode(mesh) -> None:
-    """Decode and prefill run on one device: over a mesh they raise."""
-    if mesh is not None:
-        raise NotImplementedError("decode over a mesh is not ported yet "
-                                  "(ROADMAP queue A)")
-
-
 def lm_loss(params, cfg: ArchConfig, batch, mesh=None, shards=None):
     """Next-token CE, masked to text positions. Returns (loss, metrics);
     differentiable, with each stacked layer under ``cfg.remat``. Over
@@ -331,42 +344,69 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
             torch.zeros((l, batch, max_len, hk, d), dtype=dtype, device=dev))
 
 
+KV_KEEP = {1: "batch", 2: "model"}     # a KV cache's natively split dims
+
+
 def lm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
-                   mesh=None):
+                   mesh=None, shards=None, cache_specs=None):
     """tokens (B, S) at positions cache_len.. -> (logits (B, V) of the last
     position, new cache). cache_len: an int (or a 0-d tensor). The cache
-    passed in is left as it was. One device: decode over a mesh is not
-    ported (ROADMAP queue A)."""
-    no_mesh_decode(mesh)
+    passed in is left as it was. Over ``mesh``: ``params`` are this rank's
+    shards (``shards``), ``cache`` its cache shards under ``cache_specs``,
+    ``tokens`` the global batch; the logits are every row's, the cache
+    this rank's (see the module docstring)."""
+    if one_device(mesh):
+        mesh = shards = None
+    step = None if mesh is None else MeshStep(mesh, shards, cache_specs)
+    seq_split = False
+    if step is not None:
+        tokens = step.rows({"tokens": tokens})["tokens"]
+        params = gather_head(params, shards)
+        cache, backs = zip(*(step.working(c, sp, KV_KEEP)
+                             for c, sp in zip(cache, cache_specs)))
+        seq_split = backs[0][2] is None and step.split(cache_specs[0], 2)
     cl = int(cache_len)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, shards)
     b, s, _ = x.shape
     positions = (cl + torch.arange(s, device=x.device))[None].expand(b, s)
-    block = _block_decode(cfg, mesh)
+    sub = lambda name, stacked=False: shards and shards.sub(name, stacked)
 
     new_slices = []
     x_pos = (x, positions)
     for i in range(cfg.first_k_dense):
+        block = _block_decode(cfg, mesh, sub(f"dense{i}"), seq_split)
         x_pos, nc = block(slice_layer(params, f"dense{i}"), x_pos,
                           tuple(c[i] for c in cache), cl)
         new_slices.append(nc)
     stacked = slice_layer(params, "layers")
+    block = _block_decode(cfg, mesh, sub("layers", True), seq_split)
     for j, layer in enumerate(layer_slices(stacked)):
         li = cfg.first_k_dense + j
         x_pos, nc = block(layer, x_pos,
                           tuple(c[li] for c in cache), cl)
         new_slices.append(nc)
     x = rms_norm(x_pos[0], params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x)[:, -1]
+    logits = _logits(params, cfg, x[:, -1:], shards)[:, -1]
     new_cache = tuple(torch.stack(parts) for parts in zip(*new_slices))
+    if step is not None:
+        logits = step.logits(logits, _head(params, cfg, shards)[1])
+        new_cache = tuple(step.finish(t, b)
+                          for t, b in zip(new_cache, backs))
     return logits, new_cache
 
 
 def lm_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
-               cache_dtype=torch.bfloat16):
-    """Process a full prompt: returns (last-position logits, filled cache)."""
+               cache_dtype=torch.bfloat16, shards=None, cache_specs=None):
+    """Process a full prompt: returns (last-position logits, filled cache).
+    Over ``mesh`` the cache is this rank's shards under ``cache_specs``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_kv_cache(cfg, b, max_len, cache_dtype,
-                          device=params["embed"].device)
-    return lm_decode_step(params, cfg, cache, tokens, 0, mesh=mesh)
+    dev = params["embed"].device
+    if one_device(mesh):
+        cache = init_kv_cache(cfg, b, max_len, cache_dtype, device=dev)
+    else:
+        cache = local_zeros(init_kv_cache(cfg, b, max_len, cache_dtype,
+                                          device="meta"),
+                            cache_specs, mesh, dev)
+    return lm_decode_step(params, cfg, cache, tokens, 0, mesh=mesh,
+                          shards=shards, cache_specs=cache_specs)

@@ -20,6 +20,17 @@ Both have O(1)-state decode steps (the last d_conv - 1 pre-conv inputs and
 the ssm state). The depthwise conv sums its taps in one order in the
 prefill and the decode step, so both give a position the same bits. Every
 product of token rows with a weight goes through ``common.tok_einsum``.
+
+mamba1's forward and decode step also run column-parallel over a mesh's
+"model" axis (``shards``, forward only: decode and prefill), with the
+layer's leaves split over d_inner as training lays them out: each rank
+projects its contiguous chunk of ``w_in``'s [x | z] columns and one
+all-gather gives every rank both halves, of which it keeps its own
+d_inner columns; the depthwise conv and the scan run on those columns
+and its slice of the state; ``w_x``'s and ``w_out``'s contractions over
+d_inner are summed over "model" ("g"). Three collectives a layer: the
+all-gather (B x S x 2 d_inner) and two all-reduces (B x S x (dt_rank + 2
+N), B x S x d_model).
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
-from .common import ParamCollector, model_device, rms_norm, tok_einsum
+from ..distributed.collectives import MODEL, all_gather
+from .common import (ParamCollector, block_of, model_device, rms_norm,
+                     tok_einsum)
 
 
 def _chunk_of(chunk: int, length: int) -> int:
@@ -104,18 +117,27 @@ def init_mamba1(col: ParamCollector, cfg: ArchConfig, prefix: str = "mamba"):
     col.param(f"{prefix}/w_out", (di, e), ("inner", "embed"))
 
 
-def _mamba1_inputs(p, cfg: ArchConfig, x: torch.Tensor):
+def _mamba1_inputs(p, cfg: ArchConfig, x: torch.Tensor, shards=None):
     """(u, z): the input projection split into the conv branch and the
-    gate."""
+    gate; column-parallel over "model" (``shards``), this rank's d_inner
+    columns of each."""
     xz = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
-    u, z = xz.chunk(2, dim=-1)
-    return u, z
+    if shards is None:
+        u, z = xz.chunk(2, dim=-1)
+        return u, z
+    xz = all_gather(xz, xz.dim() - 1, shards.mesh, MODEL)
+    c = cfg.d_inner // shards.tp
+    lo = shards.mi * c
+    return xz[..., lo:lo + c], xz[..., cfg.d_inner + lo:cfg.d_inner + lo + c]
 
 
-def _mamba1_ssm_params(p, cfg: ArchConfig, u: torch.Tensor):
-    """(dt, A, B, C) of the selective scan, in fp32."""
+def _mamba1_ssm_params(p, cfg: ArchConfig, u: torch.Tensor, shards=None):
+    """(dt, A, B, C) of the selective scan, in fp32 (over "model": the
+    contraction over d_inner summed, dt of this rank's columns)."""
     dtr, n = cfg.dt_rank, cfg.ssm_state
     proj = tok_einsum("bli,ir->blr", u, p["w_x"].to(u.dtype))
+    if shards is not None:
+        proj = shards.g(proj)
     dt_in, b_in, c_in = proj.split([dtr, n, n], dim=-1)
     dt = F.softplus(
         tok_einsum("blr,ri->bli", dt_in, p["w_dt"].to(u.dtype)).float()
@@ -138,18 +160,20 @@ def _scan_chunk(adt: torch.Tensor, bx: torch.Tensor):
 
 
 def mamba1_forward(p, cfg: ArchConfig, x: torch.Tensor,
-                   return_state: bool = False):
+                   return_state: bool = False, shards=None):
     """x (B, L, E) -> (B, L, E). Chunked scan over time. With return_state:
     also returns Mamba1State for decode continuation (the parallel-prefill
-    path)."""
+    path). ``shards``: column-parallel over "model" (see the module
+    docstring; the state is this rank's d_inner columns)."""
     b, length, _ = x.shape
-    u_raw, z = _mamba1_inputs(p, cfg, x)
+    u_raw, z = _mamba1_inputs(p, cfg, x, shards)
     u = F.silu(_causal_conv(u_raw, p["conv_w"].to(x.dtype),
                             p["conv_b"].to(x.dtype)))
-    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u)
-    ck = _chunk_of(cfg.ssm_chunk, length)
+    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u, shards)
+    # the scan's only counted product, C . h, sums over the chunks alike
+    ck = block_of(_chunk_of(cfg.ssm_chunk, length), length, x.device)
     uf = u.float()
-    h = torch.zeros((b, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+    h = torch.zeros((b, u.shape[-1], cfg.ssm_state), dtype=torch.float32,
                     device=x.device)
     ys = []
     for lo in range(0, length, ck):
@@ -165,19 +189,23 @@ def mamba1_forward(p, cfg: ArchConfig, x: torch.Tensor,
     y = y + uf * p["d"].float()[None, None]
     y = y.to(x.dtype) * F.silu(z)
     out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    if shards is not None:
+        out = shards.g(out)
     if return_state:
         return out, Mamba1State(_conv_tail(u_raw, cfg.d_conv - 1), h)
     return out
 
 
-def mamba1_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba1State):
-    """Single-token step: x (B, 1, E) -> (y (B, 1, E), new state)."""
-    u, z = _mamba1_inputs(p, cfg, x)
+def mamba1_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba1State,
+                  shards=None):
+    """Single-token step: x (B, 1, E) -> (y (B, 1, E), new state);
+    ``shards``: column-parallel, as ``mamba1_forward``."""
+    u, z = _mamba1_inputs(p, cfg, x, shards)
     u1, conv_state = _conv_step(state.conv, u[:, 0],
                                 p["conv_w"].to(x.dtype),
                                 p["conv_b"].to(x.dtype))
     u1 = F.silu(u1)[:, None]                               # (B, 1, di)
-    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u1)
+    dt, a, b_in, c_in = _mamba1_ssm_params(p, cfg, u1, shards)
     u1 = u1[:, 0].float()
     adt = torch.exp(dt[:, 0, :, None] * a[None])           # (B, di, N)
     bx = (dt[:, 0] * u1)[..., None] * b_in[:, 0, None, :]
@@ -186,6 +214,8 @@ def mamba1_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba1State):
     y = y + u1 * p["d"].float()[None]
     y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
     out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    if shards is not None:
+        out = shards.g(out)
     return out, Mamba1State(conv_state, h)
 
 
@@ -235,38 +265,42 @@ def _mamba2_split(p, cfg: ArchConfig, x: torch.Tensor):
 
 def _ssd_chunked(xh, b_in, c_in, dt, a, chunk: int, h0=None):
     """SSD scan. xh (B,L,H,hd); b_in/c_in (B,L,N); dt (B,L,H) (softplus'd);
-    a (H,) negative. Returns (y (B,L,H,hd), final state (B,H,hd,N))."""
+    a (H,) negative. Returns (y (B,L,H,hd), final state (B,H,hd,N)). The
+    chunks' products are batched over a chunk dim c; only the state they
+    carry, an elementwise update, loops from chunk to chunk."""
     b, length, h, hd = xh.shape
     n = b_in.shape[-1]
     ck = _chunk_of(chunk, length)
-    xf = xh.float()
+    nc = length // ck
+    x_k = xh.float().reshape(b, nc, ck, h, hd)
+    b_k, c_k = b_in.reshape(b, nc, ck, n), c_in.reshape(b, nc, ck, n)
+    dt_k = dt.reshape(b, nc, ck, h)
+    cum = torch.cumsum(dt_k * a, dim=2)                  # (B,c,ck,H) log-decay
     causal = torch.ones((ck, ck), dtype=torch.bool,
-                        device=xh.device).tril()[None, :, :, None]
+                        device=xh.device).tril()[:, :, None]
+    # intra-chunk (attention-like) term
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,c,l,m,H) l-m
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    cb = torch.einsum("bcln,bcmn->bclm", c_k, b_k)       # (B,c,ck,ck)
+    w = cb[..., None] * decay * dt_k[:, :, None, :, :]   # (B,c,l,m,H)
+    y = torch.einsum("bclmh,bcmhd->bclhd", w, x_k)
+    # each chunk's inputs decayed to its end: the state it adds
+    rev = cum[:, :, -1:, :] - cum
+    contrib = torch.einsum("bclhd,bcln->bchdn",
+                           x_k * (torch.exp(rev) * dt_k)[..., None], b_k)
+    # the state each chunk starts from, carried through the chunks
+    keep = torch.exp(cum[:, :, -1])[..., None, None]     # (B,c,H,1,1)
     state = h0 if h0 is not None else torch.zeros(
         (b, h, hd, n), dtype=torch.float32, device=xh.device)
-    ys = []
-    for lo in range(0, length, ck):
-        sl = slice(lo, lo + ck)
-        x_k, b_k, c_k, dt_k = xf[:, sl], b_in[:, sl], c_in[:, sl], dt[:, sl]
-        da = dt_k * a[None, None]                        # (B,ck,H) log-decay
-        cum = torch.cumsum(da, dim=1)
-        # intra-chunk (attention-like) term
-        seg = cum[:, :, None, :] - cum[:, None, :, :]    # (B,ck,ck,H) l-m
-        decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
-        cb = torch.einsum("bln,bmn->blm", c_k, b_k)      # (B,ck,ck)
-        w = cb[..., None] * decay * dt_k[:, None, :, :]  # (B,l,m,H)
-        y = torch.einsum("blmh,bmhd->blhd", w, x_k)
-        # inter-chunk: contribution of the carried state
-        y = y + torch.einsum("bln,bhdn->blhd", c_k, state) \
-            * torch.exp(cum)[..., None]
-        # next state: decay the whole chunk + accumulate its inputs
-        rev = cum[:, -1:, :] - cum                       # decay to chunk end
-        contrib = torch.einsum("blhd,bln->bhdn",
-                               x_k * (torch.exp(rev) * dt_k)[..., None], b_k)
-        state = state * torch.exp(cum[:, -1])[..., None, None] + contrib
-        ys.append(y)
-    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
-    return y, state
+    starts = []
+    for i in range(nc):
+        starts.append(state)
+        state = state * keep[:, i] + contrib[:, i]
+    # inter-chunk: the contribution of the carried state
+    y = y + torch.einsum("bcln,bchdn->bclhd", c_k,
+                         torch.stack(starts, dim=1)) \
+        * torch.exp(cum)[..., None]
+    return y.reshape(b, length, h, hd), state
 
 
 def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,

@@ -16,6 +16,14 @@ dtypes and axes, no memory. ``build_model(cfg, mesh=mesh)`` keeps the training m
 one place they are set, ``model.shards()`` the parameters' layout under
 them, and ``model.init(key, place=...)`` hands each drawn leaf to
 ``place`` (a rank keeps its shard).
+
+A mesh carries training and decoding. ``model.loss`` over it is the
+data-, tensor- and expert-parallel step; ``model.init_cache``,
+``model.prefill`` and ``model.decode_step`` over it decode with the
+weights in the same layout: the cache is a ``MeshCache``, this rank's
+shards under ``model.cache_specs(batch, max_len)`` (the JAX dry-run's
+layout, context-parallel over "model"), the tokens are the global batch
+and the logits every row's on every rank (``models.decoding``).
 """
 
 from __future__ import annotations
@@ -28,9 +36,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
 from ..distributed.collectives import Shards
-from ..distributed.sharding import default_rules, tree_specs
+from ..distributed.sharding import cache_specs, default_rules, tree_specs
 from . import encdec, hybrid, lm, ssm_lm
 from .common import model_device
+from .decoding import MeshCache, local_zeros
 
 
 @dataclasses.dataclass
@@ -77,23 +86,56 @@ class Model:
         return self._loss(params, self.cfg, batch, mesh=self.mesh,
                           shards=self.shards())
 
+    def cache_specs(self, batch: int, max_len: int):
+        """The specs of a ``batch`` x ``max_len`` decode cache's leaves on
+        the mesh (``sharding.cache_specs``), in the cache's structure."""
+        meta = self._init_cache(self.cfg, batch, max_len, torch.bfloat16,
+                                device="meta")
+        return cache_specs(meta, self.mesh, self.rules)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device: Optional[DeviceLike] = None):
-        return self._init_cache(self.cfg, batch, max_len, dtype,
-                                device=self.device if device is None
-                                else device)
+        """A zero decode cache; over a mesh a ``MeshCache`` of this rank's
+        shards."""
+        dev = self.device if device is None else device
+        if self.mesh is None:
+            return self._init_cache(self.cfg, batch, max_len, dtype,
+                                    device=dev)
+        specs = self.cache_specs(batch, max_len)
+        meta = self._init_cache(self.cfg, batch, max_len, dtype,
+                                device="meta")
+        return MeshCache(local_zeros(meta, specs, self.mesh,
+                                     model_device(dev)), specs)
 
     def decode_step(self, params, cache, tokens, cache_len):
-        return self._decode(params, self.cfg, cache, tokens, cache_len,
-                            mesh=self.mesh)
+        if self.mesh is None:
+            return self._decode(params, self.cfg, cache, tokens, cache_len,
+                                mesh=None)
+        if not isinstance(cache, MeshCache):
+            raise TypeError("decode over a mesh takes the MeshCache that "
+                            "init_cache, prefill or decode_step returned")
+        logits, new = self._decode(params, self.cfg, cache.shards, tokens,
+                                   cache_len, mesh=self.mesh,
+                                   shards=self.shards(),
+                                   cache_specs=cache.specs)
+        return logits, MeshCache(new, cache.specs)
 
-    def prefill(self, params, batch, max_len: int):
-        if self._prefill is not None:
+    def prefill(self, params, batch, max_len: int, dtype=torch.bfloat16):
+        """(last position's logits, the cache after the prompt); ``dtype``:
+        the KV cache's (and enc_out's) dtype."""
+        if self._prefill is None:
+            # default: decode-step over the whole prompt at cache_len 0
+            cache = self.init_cache(batch["tokens"].shape[0], max_len,
+                                    dtype)
+            return self.decode_step(params, cache, batch["tokens"], 0)
+        if self.mesh is None:
             return self._prefill(params, self.cfg, batch, max_len,
-                                 mesh=self.mesh)
-        # default: decode-step over the whole prompt at cache_len 0
-        cache = self.init_cache(batch["tokens"].shape[0], max_len)
-        return self.decode_step(params, cache, batch["tokens"], 0)
+                                 cache_dtype=dtype)
+        specs = self.cache_specs(batch["tokens"].shape[0], max_len)
+        logits, new = self._prefill(params, self.cfg, batch, max_len,
+                                    mesh=self.mesh, cache_dtype=dtype,
+                                    shards=self.shards(), cache_specs=specs)
+        return logits, MeshCache(new, specs)
 
 
 def build_model(cfg: ArchConfig, mesh=None,

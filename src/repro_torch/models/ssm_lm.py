@@ -12,8 +12,15 @@ d_inner dims split over "model" too (``Shards.gather_whole``), because the
 layer cannot be computed split (``split(xz, 2)`` and the contraction of
 ``w_x`` over d_inner cut across the "model" shards). Every "model" rank
 then computes the layer whole. The embedding and the logits are the
-decoder families' (``lm.embed_rows``, ``lm.token_loss``). Decode and
-prefill over a mesh are not ported (ROADMAP queue A).
+decoder families' (``lm.embed_rows``, ``lm.token_loss``).
+
+Decode and prefill over a mesh (``models.decoding``) run each layer
+forward-only column-parallel (``mamba.mamba1_forward(shards=)``): the
+layer's FSDP shards gathered, its d_inner columns kept split over
+"model", as the cache's states are (``sharding.cache_specs`` puts
+d_inner, their longest dim, on "model"). Where the states' d_inner is
+not split over "model" the layer is gathered whole instead, with the
+states, and every "model" rank computes it whole.
 """
 
 from __future__ import annotations
@@ -27,31 +34,66 @@ from ..device import DeviceLike
 from .common import (ParamCollector, ScanBlock, StackedCollector,
                      constrain_act, dtype_of, layer_slices, local_batch,
                      rms_norm, slice_layer)
-from .lm import (_embed, _logits, gather_head, no_mesh_decode,
-                 token_loss)
+from .decoding import MeshStep, one_device
+from .lm import _embed, _head, _logits, gather_head, token_loss
 from .mamba import (Mamba1State, init_mamba1, mamba1_decode, mamba1_forward,
                     mamba1_init_state)
 
 
+def _mesh_plan(mesh, shards, cache_specs):
+    """(MeshStep or None, the layers' layout, column-parallel?, the states'
+    keeps) of a decode over ``mesh``."""
+    if one_device(mesh):
+        return None, None, False, ()
+    step = MeshStep(mesh, shards, cache_specs)
+    lsh = shards.sub("layers", stacked=True)
+    cp = (step.split(cache_specs[0], 3) and step.split(cache_specs[1], 2)
+          and lsh.model_dim("mamba/w_in") is not None)
+    keeps = ({1: "batch", 3: "model"}, {1: "batch", 2: "model"}) if cp \
+        else ({1: "batch"}, {1: "batch"})
+    return step, lsh, cp, keeps
+
+
+def _layer_of(p, lsh, cp: bool):
+    """A layer's weights for a mesh step: its FSDP shards gathered
+    (column-parallel), or the whole layer."""
+    if lsh is None:
+        return p
+    return lsh.gather(p) if cp else lsh.gather_whole(p)
+
+
 def ssm_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
-                cache_dtype=None):
+                cache_dtype=None, shards=None, cache_specs=None):
     """Parallel prefill: the chunked forward over the whole prompt, emitting
     the per-layer recurrent states for decode continuation. Returns (last
     position's logits, (conv (L, B, K-1, d_inner), ssm (L, B, d_inner,
-    N)))."""
-    no_mesh_decode(mesh)
-    x = _embed(params, cfg, batch["tokens"])
+    N))); over ``mesh`` every row's logits and this rank's state shards
+    under ``cache_specs`` (see the module docstring)."""
+    step, lsh, cp, keeps = _mesh_plan(mesh, shards, cache_specs)
+    tokens = batch["tokens"]
+    if step is not None:
+        tokens = step.rows(batch)["tokens"]
+        params = gather_head(params, shards)
+    else:
+        shards = None
+    x = _embed(params, cfg, tokens, shards)
     convs, ssms = [], []
     for p in layer_slices(slice_layer(params, "layers")):
+        p = _layer_of(p, lsh, cp)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         y, st = mamba1_forward(slice_layer(p, "mamba"), cfg, h,
-                               return_state=True)
+                               return_state=True, shards=lsh if cp else None)
         x = x + y
         convs.append(st.conv)
         ssms.append(st.ssm)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x[:, -1:])[:, -1]
-    return logits, (torch.stack(convs), torch.stack(ssms))
+    logits = _logits(params, cfg, x[:, -1:], shards)[:, -1]
+    cache = (torch.stack(convs), torch.stack(ssms))
+    if step is None:
+        return logits, cache
+    logits = step.logits(logits, _head(params, cfg, shards)[1])
+    return logits, tuple(step.finish(t, step.back(sp, keep))
+                         for t, sp, keep in zip(cache, cache_specs, keeps))
 
 
 def init_ssm_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
@@ -113,28 +155,46 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, max_len: int = 0,
 
 
 def ssm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
-                    mesh=None):
+                    mesh=None, shards=None, cache_specs=None):
     """tokens (B, S) -> (logits (B, V) of the last position, new cache):
     S = 1 one recurrent step, S > 1 the recurrent step token by token (the
-    states are the only carry). The cache passed in is left as it was."""
-    no_mesh_decode(mesh)
-    x = _embed(params, cfg, tokens)
+    states are the only carry). The cache passed in is left as it was.
+    Over ``mesh``: as ``lm.lm_decode_step``, each layer column-parallel
+    (see the module docstring)."""
+    step, lsh, cp, keeps = _mesh_plan(mesh, shards, cache_specs)
+    backs = (None, None)
+    if step is not None:
+        tokens = step.rows({"tokens": tokens})["tokens"]
+        params = gather_head(params, shards)
+        (conv_c, backs0), (ssm_c, backs1) = (
+            step.working(c, sp, keep)
+            for c, sp, keep in zip(cache, cache_specs, keeps))
+        backs = (backs0, backs1)
+    else:
+        shards = None
+        conv_c, ssm_c = cache
+    x = _embed(params, cfg, tokens, shards)
     layers = layer_slices(slice_layer(params, "layers"))
-    conv_c, ssm_c = cache
     for t in range(x.shape[1]):
         xt = x[:, t:t + 1]
         convs, ssms = [], []
         for i, p in enumerate(layers):
+            p = _layer_of(p, lsh, cp)
             h = rms_norm(xt, p["ln"], cfg.norm_eps)
             y, st = mamba1_decode(slice_layer(p, "mamba"), cfg, h,
-                                  Mamba1State(conv_c[i], ssm_c[i]))
+                                  Mamba1State(conv_c[i], ssm_c[i]),
+                                  shards=lsh if cp else None)
             xt = xt + y
             convs.append(st.conv)
             ssms.append(st.ssm)
         conv_c, ssm_c = torch.stack(convs), torch.stack(ssms)
     x_out = rms_norm(xt, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x_out)[:, -1]
-    return logits, (conv_c, ssm_c)
+    logits = _logits(params, cfg, x_out, shards)[:, -1]
+    if step is None:
+        return logits, (conv_c, ssm_c)
+    logits = step.logits(logits, _head(params, cfg, shards)[1])
+    return logits, (step.finish(conv_c, backs[0]),
+                    step.finish(ssm_c, backs[1]))
 
 
 __all__ = ["init_ssm_lm", "ssm_decode_step", "ssm_init_cache",
