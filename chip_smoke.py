@@ -175,9 +175,13 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            (4, 1) under 20 GB); mixtral-8x22b and deepseek-v2-236b at full
            width cut to 2 layers on (1, 4) and (2, 2) (step 1's loss within
            5e-3 of the one-card forward); falcon-mamba-7b at full depth
-           on (4, 1) (step 1's loss within 1e-5 of a one-card forward of
-           the same weights, per-card peak under 40 GB) and zamba2-1.2b on
-           (2, 2) and (1, 4) (llama's gates against one card); the probe's
+           on (4, 1) and (1, 4), its layers split over "model" there
+           (step 1's loss within 1e-5 / 5e-3 of a one-card forward of the
+           same weights, per-card peak under 40 GB) and zamba2-1.2b on
+           (2, 2) and (1, 4) (llama's gates against one card; and its
+           weights widened to fp32, step 1's loss and grad norm within
+           1e-4 of one card's fp32 run), each with rank 0's collectives a
+           step by kind and bytes; the probe's
            ring branch on (4, 1) (5 gram and 8 admm_step launches on every
            rank, counted from zero just before it; alpha bitwise the
            world-1 ring of the same x_nodes); the
@@ -196,7 +200,8 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            fp32 (the bf16 weights widened) within the larger of 1e-4 x
            max(1, |ref|) and 1.25 x the distance of the one-card split
            twin (the products the mesh splits done in its blocks on one
-           card) from the plain one-card run; in bf16 its relative L2
+           card, mamba1's and mamba2's included) from the plain one-card
+           run; in bf16 its relative L2
            distance from the fp32 card within 1.25 x the one-card bf16
            run's + 1e-3 (the 2e-2 reading recorded); and mixtral at 4 x
            512, past the drop-free bound, its dropped slots and distance
@@ -333,13 +338,20 @@ DIST_SMOKE_TOL = 3e-5
 DIST_MOE = (("mixtral-8x22b", 2), ("deepseek-v2-236b", 2))
 DIST_MOE_MESHES = ((1, 4), (2, 2))
 DIST_MOE_BATCH, DIST_MOE_SEQ, DIST_MOE_TOL = 2, 16, 5e-3
-# falcon-mamba-7b at full depth on (4, 1): step 1's loss against a one-card
-# forward of the same weights; its per-card peak under 40 GB (21.0 GB of
-# params, grads and moments a card, a gathered layer and activations);
-# zamba2-1.2b on (2, 2) and (1, 4) against one card (llama's gates)
-DIST_FALCON, DIST_FALCON_TOL, DIST_FALCON_PEAK_GB = "falcon-mamba-7b", \
-    1e-5, 40.0
+# falcon-mamba-7b at full depth on (4, 1) and (1, 4) (its layers split
+# over "model" there): step 1's loss against a one-card forward of the
+# same weights (at (1, 4) the split contractions' gate); its per-card peak
+# under 40 GB (21.0 GB of params, grads and moments a card at (4, 1), a
+# gathered layer and activations); zamba2-1.2b on (2, 2) and (1, 4)
+# against one card (llama's gates); each run's collectives a step
+DIST_FALCON, DIST_FALCON_PEAK_GB = "falcon-mamba-7b", 40.0
+DIST_FALCON_TOL = {(4, 1): 1e-5, (1, 4): 5e-3}
 DIST_ZAMBA, DIST_ZAMBA_MESHES = "zamba2-1.2b", ((2, 2), (1, 4))
+# and zamba2-1.2b's weights widened to fp32, one card and the same meshes:
+# step 1's loss and grad norm within this, relative (the split layers'
+# sums reordered in fp32; their bf16 reading parts further, as two bf16
+# computations of a deep recurrent stack do, PERF.md §6)
+DIST_ZAMBA_FP32_TOL = 1e-4
 DIST_RANK_TIMEOUT_S = 900
 DIST_LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--mesh", "2x2", "--steps", "3",
                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ))
@@ -3135,8 +3147,9 @@ def smoke_steps(model, dev, mesh=None):
 def lm_steps(model, dev, mesh=None) -> tuple:
     """DIST_STEPS steps of ``model`` (llama3.2-3b, falcon-mamba-7b or
     zamba2-1.2b at full width) from lm_train's seed, optimizer and batches:
-    (state, per-step loss / grad norm / seconds, peak allocation in GB
-    above what was held before)."""
+    (state, per-step loss / grad norm / seconds (and over ``mesh`` the
+    step's collectives, ``Mesh.counts``), peak allocation in GB above what
+    was held before)."""
     import torch
     from repro_torch.data import TokenStream
     from repro_torch.optim import AdamWConfig, cosine_with_warmup
@@ -3152,11 +3165,15 @@ def lm_steps(model, dev, mesh=None) -> tuple:
                        device=str(dev))
     steps = []
     for _ in range(DIST_STEPS):
+        before = dict(mesh.counts) if mesh is not None else {}
         t0 = time.perf_counter()
         _, met = step_fn(state, data.next_batch())
         loss = float(met["loss"])
         steps.append(dict(loss=loss, grad_norm=float(met["grad_norm"]),
                           s=time.perf_counter() - t0))
+        if mesh is not None:
+            steps[-1]["collectives"] = {
+                k: v - before.get(k, 0) for k, v in mesh.counts.items()}
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     return state, steps, peak
 
@@ -3226,7 +3243,8 @@ def falcon_loss(dev) -> dict:
 def dist_reference(dev) -> dict:
     """The one-card runs lm_train_dist is held to: llama3.2-3b's steps, the
     cut MoE configs' forward losses, falcon-mamba-7b's forward loss,
-    zamba2-1.2b's steps, the fp32 smoke model's params."""
+    zamba2-1.2b's steps (bf16, and its weights widened to fp32), the fp32
+    smoke model's params."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3238,11 +3256,12 @@ def dist_reference(dev) -> dict:
                     for arch, cfg in moe_cfgs().items()},
                falcon=falcon_loss(dev))
     torch.cuda.empty_cache()
-    state, steps, peak = lm_steps(build_model(get_config(DIST_ZAMBA),
-                                              device=dev), dev)
-    del state
-    torch.cuda.empty_cache()
-    ref["zamba2"] = dict(steps=steps, peak_alloc_gb=peak)
+    for key, cfg in (("zamba2", get_config(DIST_ZAMBA)),
+                     ("zamba2_fp32", fp32(get_config(DIST_ZAMBA)))):
+        state, steps, peak = lm_steps(build_model(cfg, device=dev), dev)
+        del state
+        torch.cuda.empty_cache()
+        ref[key] = dict(steps=steps, peak_alloc_gb=peak)
     state = smoke_steps(build_model(fp32(get_config(TRAIN_ARCH, smoke=True)),
                                     device=dev), dev)
     ref["smoke"] = {k: v.cpu() for k, v in state["params"].items()}
@@ -3331,14 +3350,18 @@ def dist_rank(rank: int, world: int, store: str, out: str) -> None:
             res["llama"][str(list(shape))] = entry
             del state, model
             torch.cuda.empty_cache()
-        # falcon-mamba-7b at full depth on (4, 1); zamba2-1.2b on (2, 2)
-        # and (1, 4)
-        for arch, shapes in ((DIST_FALCON, ((4, 1),)),
-                             (DIST_ZAMBA, DIST_ZAMBA_MESHES)):
+        # falcon-mamba-7b at full depth on (4, 1) and (1, 4); zamba2-1.2b
+        # on (2, 2) and (1, 4), in bf16 and widened to fp32
+        for arch, shapes, wide in (
+                (DIST_FALCON, tuple(DIST_FALCON_TOL), False),
+                (DIST_ZAMBA, DIST_ZAMBA_MESHES, False),
+                (DIST_ZAMBA, DIST_ZAMBA_MESHES, True)):
+            cfg = fp32(get_config(arch)) if wide else get_config(arch)
             for shape in shapes:
-                model = build_model(get_config(arch), mesh=meshes[shape])
+                model = build_model(cfg, mesh=meshes[shape])
                 state, steps, peak = lm_steps(model, dev, meshes[shape])
-                res.setdefault(arch, {})[str(list(shape))] = dict(
+                res.setdefault(arch + (" fp32" if wide else ""), {})[
+                    str(list(shape))] = dict(
                     steps=steps, peak_alloc_gb=peak,
                     params_m_v_gb=sum(t.numel() * t.element_size()
                                       for g in ("params", "m", "v")
@@ -3524,28 +3547,33 @@ def phase_lm_train_dist(dev) -> dict:
               for p in probe) and alpha_bitwise,
           f"lm_train_dist probe: {probe}, alpha {alpha_err:.3g} from the "
           f"one-card ring (bitwise: {alpha_bitwise})")
-    # the families: falcon-mamba-7b at (4, 1) against its one-card forward
-    # loss, zamba2-1.2b at (2, 2) and (1, 4) against its one-card steps
+    # the families: falcon-mamba-7b at (4, 1) and (1, 4) against its
+    # one-card forward loss, zamba2-1.2b at (2, 2) and (1, 4) against its
+    # one-card steps; each with rank 0's collectives a step
     families = {}
     want = ref["falcon"]["loss"]
-    got = r0[DIST_FALCON]["[4, 1]"]["steps"]
-    peaks = [r[DIST_FALCON]["[4, 1]"]["peak_alloc_gb"] for r in ranks]
-    families[DIST_FALCON] = dict(
-        mesh=[4, 1], losses=[g["loss"] for g in got],
-        grad_norms=[g["grad_norm"] for g in got],
-        step_s=[g["s"] for g in got], one_card_forward_loss=want,
-        step1_loss_rel_gap=abs(got[0]["loss"] - want) / abs(want),
-        gate=DIST_FALCON_TOL, peak_alloc_gb_by_rank=peaks,
-        peak_gate_gb=DIST_FALCON_PEAK_GB,
-        params_m_v_gb_per_card=r0[DIST_FALCON]["[4, 1]"]["params_m_v_gb"],
-        one_card_forward_peak_gb=ref["falcon"]["peak_alloc_gb"])
-    same = all(r[DIST_FALCON]["[4, 1]"]["steps"][i]["loss"] == got[i]["loss"]
-               for r in ranks for i in range(DIST_STEPS))
-    check(same and all(math.isfinite(g["loss"]) for g in got)
-          and families[DIST_FALCON]["step1_loss_rel_gap"] <= DIST_FALCON_TOL
-          and max(peaks) < DIST_FALCON_PEAK_GB,
-          f"lm_train_dist {DIST_FALCON}: {families[DIST_FALCON]}, losses "
-          f"the same on every rank {same}")
+    for shape, tol in DIST_FALCON_TOL.items():
+        key = str(list(shape))
+        got = r0[DIST_FALCON][key]["steps"]
+        peaks = [r[DIST_FALCON][key]["peak_alloc_gb"] for r in ranks]
+        rec = dict(
+            losses=[g["loss"] for g in got],
+            grad_norms=[g["grad_norm"] for g in got],
+            step_s=[g["s"] for g in got], one_card_forward_loss=want,
+            step1_loss_rel_gap=abs(got[0]["loss"] - want) / abs(want),
+            gate=tol, peak_alloc_gb_by_rank=peaks,
+            peak_gate_gb=DIST_FALCON_PEAK_GB,
+            params_m_v_gb_per_card=r0[DIST_FALCON][key]["params_m_v_gb"],
+            one_card_forward_peak_gb=ref["falcon"]["peak_alloc_gb"],
+            collectives_rank0_by_step=[g["collectives"] for g in got])
+        same = all(r[DIST_FALCON][key]["steps"][i]["loss"] == got[i]["loss"]
+                   for r in ranks for i in range(DIST_STEPS))
+        families[f"{DIST_FALCON} {key}"] = rec
+        check(same and all(math.isfinite(g["loss"]) for g in got)
+              and rec["step1_loss_rel_gap"] <= tol
+              and max(peaks) < DIST_FALCON_PEAK_GB,
+              f"lm_train_dist {DIST_FALCON} {key}: {rec}, losses the same "
+              f"on every rank {same}")
     zref = ref["zamba2"]["steps"]
     for shape in DIST_ZAMBA_MESHES:
         key = str(list(shape))
@@ -3563,7 +3591,8 @@ def phase_lm_train_dist(dev) -> dict:
             gate=DIST_LOSS_TOL[shape], grad_norm_gate=DIST_GNORM_TOL,
             peak_alloc_gb_by_rank=[r[DIST_ZAMBA][key]["peak_alloc_gb"]
                                    for r in ranks],
-            params_m_v_gb_per_card=r0[DIST_ZAMBA][key]["params_m_v_gb"])
+            params_m_v_gb_per_card=r0[DIST_ZAMBA][key]["params_m_v_gb"],
+            collectives_rank0_by_step=[g["collectives"] for g in got])
         same = all(r[DIST_ZAMBA][key]["steps"][i]["loss"] == got[i]["loss"]
                    for r in ranks for i in range(DIST_STEPS))
         families[f"{DIST_ZAMBA} {key}"] = rec
@@ -3572,6 +3601,30 @@ def phase_lm_train_dist(dev) -> dict:
               and rec["step1_grad_norm_rel_gap"] <= DIST_GNORM_TOL,
               f"lm_train_dist {DIST_ZAMBA} {key}: {rec}, losses the same "
               f"on every rank {same}")
+        # fp32: the weights widened, one card and the mesh
+        got = r0[DIST_ZAMBA + " fp32"][key]["steps"]
+        want32 = ref["zamba2_fp32"]["steps"][0]
+        rec32 = dict(
+            losses=[g["loss"] for g in got],
+            grad_norms=[g["grad_norm"] for g in got],
+            step_s=[g["s"] for g in got],
+            one_card_losses=[w["loss"] for w in ref["zamba2_fp32"]["steps"]],
+            one_card_grad_norms=[w["grad_norm"]
+                                 for w in ref["zamba2_fp32"]["steps"]],
+            step1_loss_rel_gap=abs(got[0]["loss"] - want32["loss"])
+            / abs(want32["loss"]),
+            step1_grad_norm_rel_gap=abs(got[0]["grad_norm"]
+                                        - want32["grad_norm"])
+            / abs(want32["grad_norm"]),
+            gate=DIST_ZAMBA_FP32_TOL,
+            one_card_bf16_step1_grad_norm_rel_to_fp32=abs(
+                zref[0]["grad_norm"] - want32["grad_norm"])
+            / abs(want32["grad_norm"]))
+        families[f"{DIST_ZAMBA} fp32 {key}"] = rec32
+        check(all(math.isfinite(g["loss"]) for g in got)
+              and rec32["step1_loss_rel_gap"] <= DIST_ZAMBA_FP32_TOL
+              and rec32["step1_grad_norm_rel_gap"] <= DIST_ZAMBA_FP32_TOL,
+              f"lm_train_dist {DIST_ZAMBA} fp32 {key}: {rec32}")
     moe = {}
     for key, got in r0["moe"].items():
         arch = key.split()[0]
@@ -3597,7 +3650,8 @@ def phase_lm_train_dist(dev) -> dict:
                peak_alloc_gb_4x1_max=peak41, probe_by_rank=probe,
                probe_alpha_bitwise_one_card_ring=alpha_bitwise,
                probe_alpha_max_abs_err_one_card_ring=alpha_err,
-               families=families, one_card_zamba2=ref["zamba2"], moe=moe,
+               families=families, one_card_zamba2=ref["zamba2"],
+               one_card_zamba2_fp32=ref["zamba2_fp32"], moe=moe,
                fp32_smoke_params_max_err_over_max_abs=smoke_gaps,
                fp32_smoke_gate=DIST_SMOKE_TOL,
                elastic_22_to_41_bitwise=elastic,
@@ -3995,24 +4049,44 @@ def split_einsum(orig, tp: int):
     return run
 
 
+def split_rms_norm(tp: int):
+    """``common.rms_norm`` with the sum of squares taken in ``tp`` blocks
+    of the last dim and the blocks' sums added in rank order: mamba2's
+    gated RMSNorm as the mesh computes it (each rank's sum of its columns,
+    all-reduced)."""
+    import torch
+
+    def run(x, weight, eps=1e-5):
+        xf = x.float()
+        parts = [(b * b).sum(-1, keepdim=True) for b in xf.chunk(tp, -1)]
+        ss = parts[0]
+        for part in parts[1:]:
+            ss = ss + part
+        out = xf * torch.rsqrt(ss / x.shape[-1] + eps)
+        return (out * weight.float()).to(x.dtype)
+    return run
+
+
 @contextlib.contextmanager
-def split_products(cfg, tp: int):
+def split_products(tp: int):
     """On one card, the products a mesh of ``tp`` "model" ranks splits
     (SPLIT_LABEL) done in its blocks, in every model module that computes
     them over a mesh: all but the MoE experts (dispatched whole, by
-    expert) and, for the hybrid family, the mamba2 layers (gathered
-    whole)."""
+    expert); and mamba2's gated RMSNorm with its sum of squares split
+    alike (mamba's ``rms_norm`` is that norm's alone)."""
     from repro_torch.models import attention, common, encdec, lm, mamba, mlp
-    mods = [attention, encdec, lm, mlp] + (
-        [mamba] if cfg.family != "hybrid" else [])
+    mods = [attention, encdec, lm, mamba, mlp]
     saved = [m.tok_einsum for m in mods]
+    saved_norm = mamba.rms_norm
     for m in mods:
         m.tok_einsum = split_einsum(common.tok_einsum, tp)
+    mamba.rms_norm = split_rms_norm(tp)
     try:
         yield
     finally:
         for m, f in zip(mods, saved):
             m.tok_einsum = f
+        mamba.rms_norm = saved_norm
 
 
 def fp32_len(cfg, prompt: int, max_len: int) -> int:
@@ -4073,7 +4147,7 @@ def decode_references(dev, tmp: str, only=None) -> dict:
                 tps = sorted({r[2][1] for r in runs if r[:2] == run[:2]
                               and r[3:] == run[3:] and r[2][1] > 1})
                 for tp in tps:
-                    with split_products(cfg, tp):
+                    with split_products(tp):
                         twin, *_ = greedy_run(
                             build_model(c32, device=dev), wide, batch, n32,
                             feed=toks, dtype=torch.float32)

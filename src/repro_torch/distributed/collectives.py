@@ -12,8 +12,11 @@ first and second moment is a plain local tensor, the process's shard under
     "data"-sharded dim on use; backward: reduce-scatter (sum), so each
     rank keeps its shard's gradient;
   * ``gather_replica``: all-gather over "model" for a layer that every
-    "model" rank computes whole (mamba's); backward: the rank's slice of
-    the gradient, unsummed (each rank's is already the whole one);
+    "model" rank computes whole; backward: the rank's slice of the
+    gradient, unsummed (each rank's is already the whole one). Only a
+    mamba layer whose widths the "model" size does not divide runs so
+    (the divisibility fallback, ``Shards.gather_whole``); the others run
+    split, on the rank's d_inner columns or heads;
   * ``copy_to`` (Megatron's "f"): identity forward, all-reduce (sum)
     backward; it goes where a tensor replicated over "model" enters
     per-shard work: before the column-parallel products (q/k/v heads,
@@ -25,6 +28,18 @@ first and second moment is a plain local tensor, the process's shard under
     used for it: its backward all-reduces the incoming gradient, which
     downstream of "g" is already the same on every rank, so the gradient
     would come back multiplied by the group's size;
+  * ``reduce_sum``: all-reduce (sum) forward and backward, for a sum that
+    each rank then uses only through its own shard of the work (mamba1's
+    ``w_x`` product, which feeds the rank's d_inner columns of the scan;
+    mamba2's sum of squares for its gated RMSNorm over the whole
+    d_inner): downstream of it the ranks' gradients differ, each the part
+    through its own columns, so the backward must sum them where "g"'s
+    passes them on;
+  * ``grad_on_first``: identity forward; backward the gradient on the
+    first rank of the axes, zeros on the others: for a value every rank
+    computes whole, with the same whole gradient, ahead of a sum over
+    the ranks (mamba2's B and C channels over "model"), which then counts
+    it once;
   * ``mean_all`` (the JAX package's ``pmean`` over every axis): forward
     the mean over all ranks, backward the gradient over the rank count;
   * ``scale_grad``: identity forward, backward the gradient times a
@@ -227,6 +242,39 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceSum(torch.autograd.Function):
+    """Forward: all-reduce (sum) over ``axes``. Backward: all-reduce (sum)
+    of the gradient. Each rank's output is used only through its own shard
+    of the work that follows, so each rank's gradient of it is partial and
+    the whole one is their sum ("g" would keep the rank's part alone)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce_(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _GradOnFirst(torch.autograd.Function):
+    """Forward: identity. Backward: the gradient on the first rank of
+    ``axes``, zeros on the others. For a value that every rank on ``axes``
+    computes whole from the same inputs, with the same whole gradient,
+    before a sum over them (a reduce-scatter's, a replicated leaf's): the
+    sum then counts it once, exactly."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.first = mesh.index(axes) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None, None
+
+
 class _MeanAll(torch.autograd.Function):
     """``pmean`` over every rank. Forward: the sum over the world divided by
     its size. Backward: the gradient divided by the world size."""
@@ -272,6 +320,14 @@ def copy_to(x, mesh: Mesh, axes: MeshAxes = MODEL):
 
 def reduce_from(x, mesh: Mesh, axes: MeshAxes = MODEL):
     return x if mesh.size(axes) == 1 else _ReduceFrom.apply(x, mesh, axes)
+
+
+def reduce_sum(x, mesh: Mesh, axes: MeshAxes = MODEL):
+    return x if mesh.size(axes) == 1 else _ReduceSum.apply(x, mesh, axes)
+
+
+def grad_on_first(x, mesh: Mesh, axes: MeshAxes = MODEL):
+    return x if mesh.size(axes) == 1 else _GradOnFirst.apply(x, mesh, axes)
 
 
 def mean_all(x, mesh: Mesh):
@@ -341,8 +397,9 @@ class Shards:
     def gather_whole(self, params: Dict[str, torch.Tensor]):
         """Every leaf whole on every rank: ``gather``'s FSDP gathers, and
         the dims split over "model" gathered too, with the unsummed
-        backward of ``gather_replica`` (for a layer that cannot be
-        computed split, which every "model" rank then computes whole)."""
+        backward of ``gather_replica`` (for a mamba layer whose widths the
+        "model" size does not divide, which every "model" rank then
+        computes whole)."""
         out = {}
         for k, v in params.items():
             for d, e in enumerate(self.specs[k]):
@@ -354,11 +411,24 @@ class Shards:
             out[k] = v
         return out
 
+    def gather_layer(self, params: Dict[str, torch.Tensor], split: bool):
+        """A layer's leaves as it runs: their FSDP dims gathered when it
+        runs ``split`` over "model" (``gather``), else whole
+        (``gather_whole``)."""
+        return self.gather(params) if split else self.gather_whole(params)
+
     def f(self, x):
         return copy_to(x, self.mesh)
 
     def g(self, x):
         return reduce_from(x, self.mesh)
+
+    def split(self, keys, *widths) -> bool:
+        """Can a layer run split over "model": an axis of more than one
+        rank, every leaf of ``keys`` split over it, and its size dividing
+        each of ``widths``."""
+        return self.tp > 1 and all(w % self.tp == 0 for w in widths) and \
+            all(self.model_dim(k) is not None for k in keys)
 
     def f_replicated(self, p: Dict[str, torch.Tensor], key: str):
         """``p[key]``, through "f" when it is replicated over "model" (each
@@ -369,5 +439,5 @@ class Shards:
 
 __all__ = ["MODEL", "Mesh", "Shards", "all_gather", "all_reduce_",
            "batch_axes_of", "copy_to", "gather", "gather_full",
-           "gather_replica", "mean_all",
-           "reduce_from", "reduce_scatter", "scale_grad"]
+           "gather_replica", "grad_on_first", "mean_all", "reduce_from",
+           "reduce_scatter", "reduce_sum", "scale_grad"]

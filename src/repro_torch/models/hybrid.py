@@ -11,20 +11,39 @@ whole stack per group in the backward pass. Decode keeps one shared KV
 cache per group; the tail of ``n_layers % attn_every`` mamba layers has
 none.
 
-Over a training mesh (``shards``) each mamba layer gathers its leaves
-whole inside its rematerialized block and every "model" rank computes it
-whole (see ``ssm_lm``); the shared block's weights are gathered over their
-FSDP axes once a step and it runs the Megatron branches of ``gqa_forward``
-and ``mlp_forward``.
+Over a training mesh (``shards``) each mamba2 layer gathers its leaves
+whole inside its rematerialized block (``Shards.gather_whole``) and every
+"model" rank computes it whole. The split layer (below) is not used in
+training yet: a bf16 step through it parts from one device's grad norm
+by more than the mesh gates allow, while one device's bf16 gradient is
+itself mostly rounding at full depth; what such a step is held to is
+decided first (ROADMAP C9). The shared block's weights are gathered over
+their FSDP axes once a step and it runs the Megatron branches of
+``gqa_forward`` and ``mlp_forward``.
 
-Decode and prefill over a mesh (``models.decoding``) gather each mamba2
-layer whole, as training does, and its states whole over "model" once a
-step (``sharding.cache_specs`` splits their longest dim, which mamba2's
-heads do not follow: the conv state's x, B and C channels side by side,
-the ssm state's N); every "model" rank computes the layer whole and
-keeps its shard of the new states. The shared block's weights are
-gathered over their FSDP axes once a step and its KV cache is
-context-parallel (``models.attention``).
+Decode and prefill over a mesh (``models.decoding``) run each mamba2
+layer split over "model" by heads (``mamba.mamba2_forward(shards=)``, the
+layer's FSDP dims gathered, its d_inner leaves kept split). The states
+keep ``sharding.cache_specs``' layout, which splits their longest dim
+over "model" and which mamba2's heads do not follow (the conv state's x,
+B and C channels side by side; the ssm state's N, or at smoke size its
+head dim). A step all-gathers both whole over "model"
+once (the conv tail and the ssm state, every layer's at once), and each
+layer takes its heads' slice of the ssm state; the layer returns the new
+conv tail whole (the gathered ``w_in`` product holds every channel's new
+row) and its heads' new ssm state, and one all-gather over the heads at
+the end of the step (every layer's at once) gives every rank the whole
+new state to cut its shard from. Collectives a step over "model", beyond
+the shared block's and the FSDP gathers: two all-gathers of the states,
+three a layer (the ``w_in`` product, the norm's and "g"'s all-reduces)
+and one all-gather of the new ssm states; a prefill makes the last alone
+of the states'. The shared block's KV cache is context-parallel
+(``models.attention``).
+
+Where the "model" size does not divide the head count (or leaves one of
+``w_in``, ``norm_w``, ``w_out`` whole) a decode gathers each mamba2 layer
+and its states whole instead (``Shards.gather_whole``), as training does,
+and every "model" rank computes the layer whole.
 """
 
 from __future__ import annotations
@@ -35,6 +54,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from ..distributed.collectives import MODEL, all_gather
 from .attention import KVCache, gqa_forward, init_gqa
 from .common import (ParamCollector, ScanBlock, StackedCollector,
                      constrain_act, dtype_of, layer_slices, local_batch,
@@ -42,7 +62,7 @@ from .common import (ParamCollector, ScanBlock, StackedCollector,
 from .decoding import MeshStep, local_zeros, one_device
 from .lm import KV_KEEP, _embed, _head, _logits, gather_head, token_loss
 from .mamba import (Mamba2State, init_mamba2, mamba2_decode, mamba2_forward,
-                    mamba2_init_state)
+                    mamba2_init_state, split_layout)
 from .mlp import init_mlp, mlp_forward
 
 
@@ -168,12 +188,14 @@ KEEPS = ({1: "batch"}, {1: "batch"}, KV_KEEP, KV_KEEP)
 
 class _Mesh:
     """A hybrid decode's view of the mesh: the step, the mamba layers' and
-    the shared block's layouts, the shared block's weights gathered over
-    their FSDP axes, whether the KV slots are split over "model"."""
+    the shared block's layouts, the mamba2 layout when the layers run
+    split (else None), the shared block's weights gathered over their FSDP
+    axes, whether the KV slots are split over "model"."""
 
-    def __init__(self, params, mesh, shards, cache_specs):
+    def __init__(self, cfg: ArchConfig, params, mesh, shards, cache_specs):
         self.step = MeshStep(mesh, shards, cache_specs)
         self.layers = shards.sub("layers", stacked=True)
+        self.mamba = split_layout(cfg, self.layers)
         self.shared = shards.sub("shared")
         self.params = dict(params, **merge("shared", self.shared.gather(
             slice_layer(params, "shared"))))
@@ -182,12 +204,28 @@ class _Mesh:
         self.seq_split = self.backs[2][2] is None and self.step.split(
             cache_specs[2], 2)
 
+    def heads(self, cache):
+        """A working cache (the states whole over "model") with the ssm
+        states cut to this rank's heads where the layers run split."""
+        if self.mamba is None:
+            return cache
+        conv, ssm, *kv = cache
+        return (conv, ssm.chunk(self.mamba.tp, 2)[self.mamba.mi], *kv)
 
-def _plan(params, mesh, shards, cache_specs):
+    def whole(self, cache):
+        """``heads``' inverse: the ranks' ssm states all-gathered over the
+        heads."""
+        if self.mamba is None:
+            return cache
+        conv, ssm, *kv = cache
+        return (conv, all_gather(ssm, 2, self.step.mesh, MODEL), *kv)
+
+
+def _plan(params, cfg: ArchConfig, mesh, shards, cache_specs):
     """(params with the head and shared block gathered, _Mesh or None)."""
     if one_device(mesh):
         return params, None
-    m = _Mesh(gather_head(params, shards), mesh, shards, cache_specs)
+    m = _Mesh(cfg, gather_head(params, shards), mesh, shards, cache_specs)
     return m.params, m
 
 
@@ -195,17 +233,19 @@ def _one_token(params, cfg: ArchConfig, x, positions, conv_c, ssm_c, ck, cv,
                cache_len, layers=None, m: Optional[_Mesh] = None):
     """Single-token pass through the full hybrid stack. x (B, 1, E).
     ``layers``: the stack's ``layer_slices`` (made here if not given);
-    ``m``: a mesh step's ``_Mesh`` (the states whole over "model")."""
+    ``m``: a mesh step's ``_Mesh`` (the states as ``_Mesh.heads`` gives
+    them and returns)."""
     if layers is None:
         layers = layer_slices(slice_layer(params, "layers"))
     new_conv, new_ssm, new_k, new_v = [], [], [], []
     for gi, (lo, group, attn) in enumerate(_groups(cfg, layers)):
         for i, p in enumerate(group, start=lo):
             if m is not None:
-                p = m.layers.gather_whole(p)
+                p = m.layers.gather_layer(p, m.mamba is not None)
             h = rms_norm(x, p["ln"], cfg.norm_eps)
             y, st = mamba2_decode(slice_layer(p, "mamba"), cfg, h,
-                                  Mamba2State(conv_c[i], ssm_c[i]))
+                                  Mamba2State(conv_c[i], ssm_c[i]),
+                                  shards=m and m.mamba)
             x = x + y
             new_conv.append(st.conv)
             new_ssm.append(st.ssm)
@@ -229,7 +269,7 @@ def hybrid_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
     position's logits, cache as ``hybrid_init_cache``'s); over ``mesh``
     every row's logits and this rank's cache shards (see the module
     docstring)."""
-    params, m = _plan(params, mesh, shards, cache_specs)
+    params, m = _plan(params, cfg, mesh, shards, cache_specs)
     tokens = batch["tokens"]
     if m is not None:
         tokens = m.step.rows(batch)["tokens"]
@@ -252,10 +292,10 @@ def hybrid_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
     for _, group, attn in _groups(cfg, layers):
         for p in group:
             if m is not None:
-                p = m.layers.gather_whole(p)
+                p = m.layers.gather_layer(p, m.mamba is not None)
             h = rms_norm(x, p["ln"], cfg.norm_eps)
             y, st = mamba2_forward(slice_layer(p, "mamba"), cfg, h,
-                                   return_state=True)
+                                   return_state=True, shards=m and m.mamba)
             x = x + y
             new_conv.append(st.conv)
             new_ssm.append(st.ssm)
@@ -276,7 +316,7 @@ def hybrid_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
         return logits, cache
     logits = m.step.logits(logits, _head(params, cfg, shards)[1])
     return logits, tuple(m.step.finish(t, bk)
-                         for t, bk in zip(cache, m.backs))
+                         for t, bk in zip(m.whole(cache), m.backs))
 
 
 def hybrid_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
@@ -286,11 +326,11 @@ def hybrid_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
     another (the mamba recurrence is sequential at inference). The cache
     passed in is left as it was. Over ``mesh``: as
     ``lm.lm_decode_step`` (see the module docstring)."""
-    params, m = _plan(params, mesh, shards, cache_specs)
+    params, m = _plan(params, cfg, mesh, shards, cache_specs)
     if m is not None:
         tokens = m.step.rows({"tokens": tokens})["tokens"]
-        cache = tuple(m.step.working(c, sp, k)[0]
-                      for c, sp, k in zip(cache, cache_specs, KEEPS))
+        cache = m.heads(tuple(m.step.working(c, sp, k)[0]
+                              for c, sp, k in zip(cache, cache_specs, KEEPS)))
     else:
         shards = None
     cl = int(cache_len)
@@ -307,7 +347,7 @@ def hybrid_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
         return logits, cache
     logits = m.step.logits(logits, _head(params, cfg, shards)[1])
     return logits, tuple(m.step.finish(t, bk)
-                         for t, bk in zip(cache, m.backs))
+                         for t, bk in zip(m.whole(cache), m.backs))
 
 
 __all__ = ["hybrid_decode_step", "hybrid_init_cache", "hybrid_lm_loss",

@@ -21,16 +21,51 @@ the ssm state). The depthwise conv sums its taps in one order in the
 prefill and the decode step, so both give a position the same bits. Every
 product of token rows with a weight goes through ``common.tok_einsum``.
 
-mamba1's forward and decode step also run column-parallel over a mesh's
-"model" axis (``shards``, forward only: decode and prefill), with the
-layer's leaves split over d_inner as training lays them out: each rank
-projects its contiguous chunk of ``w_in``'s [x | z] columns and one
-all-gather gives every rank both halves, of which it keeps its own
-d_inner columns; the depthwise conv and the scan run on those columns
-and its slice of the state; ``w_x``'s and ``w_out``'s contractions over
-d_inner are summed over "model" ("g"). Three collectives a layer: the
-all-gather (B x S x 2 d_inner) and two all-reduces (B x S x (dt_rank + 2
-N), B x S x d_model).
+Over a mesh's "model" axis (``shards``: the layer's layout, keys without
+the "mamba/" prefix) both run split, in the layout the training rules
+give their leaves (d_inner on "model"), forward and backward:
+
+  * mamba1, column-parallel over d_inner: "f" on the input, each rank
+    projects its contiguous chunk of ``w_in``'s [x | z] columns and one
+    all-gather (``collectives.gather``: its backward a reduce-scatter)
+    gives every rank both halves, of which it keeps its own d_inner
+    columns; the depthwise conv and the scan run on those columns and its
+    slice of the state; ``w_x``'s contraction over d_inner is summed over
+    "model" with ``reduce_sum`` (its output feeds each rank's own columns,
+    so its backward sums too) and ``w_out``'s with "g". Collectives a
+    layer: forward an all-gather (B x L x 2 d_inner) and two all-reduces
+    (B x L x (dt_rank + 2 N), B x L x d_model); backward a reduce-scatter
+    (B x L x 2 d_inner / tp) and two all-reduces (B x L x (dt_rank + 2 N),
+    "f"'s B x L x d_model). Training, prefill and decode run it.
+  * mamba2, over heads: one all-gather of the ``w_in`` product [z | x | B
+    | C | dt] (its 2 d_inner + 2 N + H columns cut contiguously across
+    "model", not by head), of which each rank keeps its heads' z, x and dt
+    columns and the whole of B and C; the depthwise conv runs on its x
+    channels and B and C, the SSD scan on its heads; the gated RMSNorm
+    sums the ranks' sums of squares (``reduce_sum``); "g" after ``w_out``
+    (``norm_w`` and ``w_out`` are split by d_inner, aligned with the
+    heads). Each sum over the ranks is taken in fp32 on fp32 partials and
+    rounded to bf16 once, where one device rounds its own sum: the
+    products from inputs widened to fp32 (``w_in``'s x gradient, ``w_out``),
+    B and C's gradient through "f" in fp32 before the conv's backward, so
+    every rank holds it whole and the first alone passes B and C's part on
+    (``collectives.grad_on_first``): a bf16 pass rounds where one
+    device's does. The replicated ``conv_w``, ``conv_b``, ``dt_bias``,
+    ``a_log`` and ``d`` (MAMBA2_PARTIAL_KEYS) get each rank's part of
+    their gradient, for the caller to sum over "model". Prefill and decode
+    run it; training does not yet (``hybrid``'s docstring, ROADMAP C9).
+    Collectives a layer: forward an all-gather (B x L x (2 d_inner + 2 N
+    + H)) and two fp32 all-reduces (B x L x 1, B x L x d_model); backward
+    a reduce-scatter and three fp32 all-reduces (the norm's B x L x 1,
+    "f"'s B x L x d_model and B and C's B x L x 2 N). The prefill and
+    decode state's
+    conv tail comes out whole on every rank (the gathered product holds
+    every column), the ssm state as the rank's heads.
+
+``split_layout`` says whether a layer can run so: a "model" axis of more
+than one rank whose size divides d_inner (mamba2: the head count) and
+every such leaf split over it. Otherwise (the divisibility fallback) the
+callers gather the layer whole and every "model" rank computes it whole.
 """
 
 from __future__ import annotations
@@ -42,7 +77,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
-from ..distributed.collectives import MODEL, all_gather
+from ..distributed.collectives import (MODEL, gather, grad_on_first,
+                                      reduce_sum)
 from .common import (ParamCollector, block_of, model_device, rms_norm,
                      tok_einsum)
 
@@ -117,15 +153,41 @@ def init_mamba1(col: ParamCollector, cfg: ArchConfig, prefix: str = "mamba"):
     col.param(f"{prefix}/w_out", (di, e), ("inner", "embed"))
 
 
+MAMBA1_KEYS = ("w_in", "conv_w", "conv_b", "w_x", "w_dt", "dt_bias",
+               "a_log", "d", "w_out")
+MAMBA2_SPLIT_KEYS = ("w_in", "norm_w", "w_out")
+
+
+def split_layout(cfg: ArchConfig, lsh):
+    """The layout of a mamba layer's leaves (keys without "mamba/") when
+    the layer runs split over "model" under ``lsh``, the stack's one-layer
+    layout; None without a mesh or in the divisibility fallback."""
+    if lsh is None:
+        return None
+    msh = lsh.sub("mamba")
+    if cfg.mamba_version == 1:
+        split = msh.split(MAMBA1_KEYS, cfg.d_inner)
+    else:
+        split = msh.split(MAMBA2_SPLIT_KEYS, cfg.d_inner // cfg.ssm_head_dim)
+    return msh if split else None
+
+
+def _gathered_product(x: torch.Tensor, w: torch.Tensor, shards):
+    """x @ w with w's columns split over "model": "f" on x, the rank's
+    columns, then every rank's all-gathered (backward: reduce-scatter)."""
+    part = tok_einsum("ble,ei->bli", shards.f(x), w.to(x.dtype))
+    return gather(part, part.dim() - 1, shards.mesh, MODEL)
+
+
 def _mamba1_inputs(p, cfg: ArchConfig, x: torch.Tensor, shards=None):
     """(u, z): the input projection split into the conv branch and the
     gate; column-parallel over "model" (``shards``), this rank's d_inner
     columns of each."""
-    xz = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
     if shards is None:
+        xz = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
         u, z = xz.chunk(2, dim=-1)
         return u, z
-    xz = all_gather(xz, xz.dim() - 1, shards.mesh, MODEL)
+    xz = _gathered_product(x, p["w_in"], shards)
     c = cfg.d_inner // shards.tp
     lo = shards.mi * c
     return xz[..., lo:lo + c], xz[..., cfg.d_inner + lo:cfg.d_inner + lo + c]
@@ -137,7 +199,7 @@ def _mamba1_ssm_params(p, cfg: ArchConfig, u: torch.Tensor, shards=None):
     dtr, n = cfg.dt_rank, cfg.ssm_state
     proj = tok_einsum("bli,ir->blr", u, p["w_x"].to(u.dtype))
     if shards is not None:
-        proj = shards.g(proj)
+        proj = reduce_sum(proj, shards.mesh)
     dt_in, b_in, c_in = proj.split([dtr, n, n], dim=-1)
     dt = F.softplus(
         tok_einsum("blr,ri->bli", dt_in, p["w_dt"].to(u.dtype)).float()
@@ -253,14 +315,93 @@ def init_mamba2(col: ParamCollector, cfg: ArchConfig, prefix: str = "mamba"):
     col.param(f"{prefix}/w_out", (di, e), ("inner", "embed"))
 
 
-def _mamba2_split(p, cfg: ArchConfig, x: torch.Tensor):
+def _mamba2_split(p, cfg: ArchConfig, x: torch.Tensor, shards=None):
     """(z, xbc, dt): the gate, the conv branch (x, B, C) and dt (B, L,
-    heads)."""
+    heads); over "model" (``shards``) z and dt of this rank's heads and
+    the whole conv branch (``_my_channels`` picks the rank's)."""
     di, n = cfg.d_inner, cfg.ssm_state
-    zxbcdt = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
-    z, xbc, dt = zxbcdt.split([di, di + 2 * n, di // cfg.ssm_head_dim],
-                              dim=-1)
-    return z, xbc, dt
+    nh = di // cfg.ssm_head_dim
+    if shards is None:
+        zxbcdt = tok_einsum("ble,ei->bli", x, p["w_in"].to(x.dtype))
+        z, xbc, dt = zxbcdt.split([di, di + 2 * n, nh], dim=-1)
+        return z, xbc, dt
+    # the rank's columns from x and w widened to fp32 (exact products, fp32
+    # sums, one rounding, as one device's product); "f" sums x's gradient
+    # over the ranks in fp32, before its one rounding
+    part = tok_einsum("ble,ei->bli", shards.f(x.float()),
+                      p["w_in"].float()).to(x.dtype)
+    zxbcdt = gather(part, part.dim() - 1, shards.mesh, MODEL)
+    c, hc = di // shards.tp, nh // shards.tp
+    lo, hlo = shards.mi * c, 2 * di + 2 * n + shards.mi * hc
+    return (zxbcdt[..., lo:lo + c], zxbcdt[..., di:2 * di + 2 * n],
+            zxbcdt[..., hlo:hlo + hc])
+
+
+def _my_channels(t: torch.Tensor, cfg: ArchConfig, shards=None):
+    """This rank's conv channels (its heads' x, then B and C) of ``t``,
+    whose last dim is the conv branch's d_inner + 2N (all of it without
+    ``shards``). Every rank computes B and C's channels whole, with the
+    same whole gradient (``_ssd_inputs``), so only the first rank passes
+    theirs on to the sums over "model" that follow (the product's
+    reduce-scatter, the replicated leaves' sum)."""
+    if shards is None:
+        return t
+    c = cfg.d_inner // shards.tp
+    lo = shards.mi * c
+    return torch.cat([t[..., lo:lo + c],
+                      grad_on_first(t[..., cfg.d_inner:], shards.mesh)],
+                     dim=-1)
+
+
+# mamba2's leaves replicated over "model" of which each rank uses its conv
+# channels or heads: split over "model", each rank's gradient of them is
+# partial, and the caller sums it over "model"
+MAMBA2_PARTIAL_KEYS = ("conv_w", "conv_b", "dt_bias", "a_log", "d")
+
+
+def _mamba2_local(p, cfg: ArchConfig, shards=None):
+    """(conv_w, conv_b, dt_bias, a_log, d) of this rank's conv channels and
+    heads (MAMBA2_PARTIAL_KEYS)."""
+    if shards is None:
+        return tuple(p[k] for k in MAMBA2_PARTIAL_KEYS)
+    hc = cfg.d_inner // cfg.ssm_head_dim // shards.tp
+    h = slice(shards.mi * hc, (shards.mi + 1) * hc)
+    return (_my_channels(p["conv_w"], cfg, shards),
+            _my_channels(p["conv_b"], cfg, shards),
+            *(p[k][h] for k in MAMBA2_PARTIAL_KEYS[2:]))
+
+
+def _ssd_inputs(xbc: torch.Tensor, cfg: ArchConfig, shards=None):
+    """(x, B, C) of the conv branch's output, B and C in fp32; over
+    "model" B and C through "f" in fp32: the rank's heads give part of
+    their gradient, summed before its one rounding to bf16, as one
+    device's sum over every head is."""
+    n = cfg.ssm_state
+    xs, bc = xbc.split([xbc.shape[-1] - 2 * n, 2 * n], dim=-1)
+    bc = bc.float() if shards is None else shards.f(bc.float())
+    return (xs, *bc.split([n, n], dim=-1))
+
+
+def _mamba2_out(y: torch.Tensor, w: torch.Tensor, shards=None):
+    """y @ w_out; over "model" the ranks' partial products in fp32 (from
+    y and w widened), summed ("g") and rounded once, as one device's."""
+    if shards is None:
+        return tok_einsum("bli,ie->ble", y, w.to(y.dtype))
+    out = tok_einsum("bli,ie->ble", y.float(), w.float())
+    return shards.g(out).to(y.dtype)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                cfg: ArchConfig, shards=None) -> torch.Tensor:
+    """mamba2's gated RMSNorm over d_inner; over "model" the ranks' sums of
+    squares of their columns summed (``reduce_sum``)."""
+    g = y * F.silu(z)
+    if shards is None:
+        return rms_norm(g, w, cfg.norm_eps)
+    gf = g.float()
+    ss = reduce_sum((gf * gf).sum(-1, keepdim=True), shards.mesh)
+    return (gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+            * w.float()).to(g.dtype)
 
 
 def _ssd_chunked(xh, b_in, c_in, dt, a, chunk: int, h0=None):
@@ -304,50 +445,57 @@ def _ssd_chunked(xh, b_in, c_in, dt, a, chunk: int, h0=None):
 
 
 def mamba2_forward(p, cfg: ArchConfig, x: torch.Tensor,
-                   return_state: bool = False):
+                   return_state: bool = False, shards=None):
+    """x (B, L, E) -> (B, L, E); with return_state also the Mamba2State
+    for decode continuation. ``shards``: split over "model" by heads (see
+    the module docstring; the state's conv tail whole, its ssm this rank's
+    heads)."""
     b, length, _ = x.shape
-    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    nh = di // hd
-    z, xbc_raw, dt = _mamba2_split(p, cfg, x)
-    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"].to(x.dtype),
-                              p["conv_b"].to(x.dtype)))
-    xs, b_in, c_in = xbc.split([di, n, n], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())
-    xh = xs.reshape(b, length, nh, hd)
-    y, ssm_state = _ssd_chunked(xh, b_in.float(), c_in.float(), dt, a,
-                                cfg.ssm_chunk)
-    y = y + xh.float() * p["d"].float()[None, None, :, None]
-    y = y.reshape(b, length, di).to(x.dtype)
-    # gated RMSNorm (mamba2)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+    hd = cfg.ssm_head_dim
+    z, xbc_raw, dt = _mamba2_split(p, cfg, x, shards)
+    conv_w, conv_b, dt_bias, a_log, d = _mamba2_local(p, cfg, shards)
+    xbc = F.silu(_causal_conv(_my_channels(xbc_raw, cfg, shards),
+                              conv_w.to(x.dtype), conv_b.to(x.dtype)))
+    xs, b_in, c_in = _ssd_inputs(xbc, cfg, shards)
+    dt = F.softplus(dt.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())
+    xh = xs.reshape(b, length, -1, hd)
+    y, ssm_state = _ssd_chunked(xh, b_in, c_in, dt, a, cfg.ssm_chunk)
+    y = y + xh.float() * d.float()[None, None, :, None]
+    y = _gated_norm(y.reshape(b, length, -1).to(x.dtype), z, p["norm_w"],
+                    cfg, shards)
+    out = _mamba2_out(y, p["w_out"], shards)
     if return_state:
         return out, Mamba2State(_conv_tail(xbc_raw, cfg.d_conv - 1),
                                 ssm_state)
     return out
 
 
-def mamba2_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba2State):
+def mamba2_decode(p, cfg: ArchConfig, x: torch.Tensor, state: Mamba2State,
+                  shards=None):
+    """Single-token step: x (B, 1, E) -> (y (B, 1, E), new state);
+    ``shards``: split as ``mamba2_forward``, the state's conv tail whole
+    and its ssm this rank's heads, in and out."""
     b = x.shape[0]
-    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    nh = di // hd
-    z, xbc, dt = _mamba2_split(p, cfg, x)
-    xbc1, conv_state = _conv_step(state.conv, xbc[:, 0],
-                                  p["conv_w"].to(x.dtype),
-                                  p["conv_b"].to(x.dtype))
-    xs, b_in, c_in = F.silu(xbc1).split([di, n, n], dim=-1)
-    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"].float())   # (B, nh)
-    a = -torch.exp(p["a_log"].float())
-    xh = xs.reshape(b, nh, hd).float()
+    hd = cfg.ssm_head_dim
+    z, xbc, dt = _mamba2_split(p, cfg, x, shards)
+    conv_w, conv_b, dt_bias, a_log, d = _mamba2_local(p, cfg, shards)
+    xbc1, _ = _conv_step(_my_channels(state.conv, cfg, shards),
+                         _my_channels(xbc[:, 0], cfg, shards),
+                         conv_w.to(x.dtype), conv_b.to(x.dtype))
+    conv_state = torch.cat([state.conv, xbc], dim=1)[:, 1:]  # every channel
+    xs, b_in, c_in = _ssd_inputs(F.silu(xbc1), cfg, shards)
+    dt1 = F.softplus(dt[:, 0].float() + dt_bias.float())        # (B, nh)
+    a = -torch.exp(a_log.float())
+    xh = xs.reshape(b, -1, hd).float()
     decay = torch.exp(dt1 * a[None])                            # (B, nh)
     h = state.ssm * decay[..., None, None] + torch.einsum(
-        "bhd,bn->bhdn", xh * dt1[..., None], b_in.float())
-    y = torch.einsum("bhdn,bn->bhd", h, c_in.float())
-    y = y + xh * p["d"].float()[None, :, None]
-    y = y.reshape(b, di).to(x.dtype) * F.silu(z[:, 0])
-    y = rms_norm(y, p["norm_w"], cfg.norm_eps)[:, None]
-    out = tok_einsum("bli,ie->ble", y, p["w_out"].to(x.dtype))
+        "bhd,bn->bhdn", xh * dt1[..., None], b_in)
+    y = torch.einsum("bhdn,bn->bhd", h, c_in)
+    y = y + xh * d.float()[None, :, None]
+    y = _gated_norm(y.reshape(b, -1).to(x.dtype), z[:, 0], p["norm_w"],
+                    cfg, shards)[:, None]
+    out = _mamba2_out(y, p["w_out"], shards)
     return out, Mamba2State(conv_state, h)
 
 
@@ -365,4 +513,5 @@ def mamba2_init_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 __all__ = ["Mamba1State", "Mamba2State", "init_mamba1", "init_mamba2",
            "mamba1_decode", "mamba1_forward", "mamba1_init_state",
-           "mamba2_decode", "mamba2_forward", "mamba2_init_state"]
+           "mamba2_decode", "mamba2_forward", "mamba2_init_state",
+           "MAMBA2_PARTIAL_KEYS", "split_layout"]

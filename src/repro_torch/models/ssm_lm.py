@@ -6,20 +6,18 @@ state), whatever the context length. ``ssm_prefill`` is the chunked
 forward over the whole prompt, emitting each layer's state;
 ``ssm_decode_step`` with S > 1 runs the recurrent step token by token.
 
-Over a training mesh (``shards``) each layer gathers its leaves whole
-first thing inside its rematerialized block: the FSDP dims, and the
-d_inner dims split over "model" too (``Shards.gather_whole``), because the
-layer cannot be computed split (``split(xz, 2)`` and the contraction of
-``w_x`` over d_inner cut across the "model" shards). Every "model" rank
-then computes the layer whole. The embedding and the logits are the
-decoder families' (``lm.embed_rows``, ``lm.token_loss``).
+Over a mesh (``shards``) each layer runs column-parallel over "model"
+(``mamba.mamba1_forward(shards=)``), forward and backward: its FSDP dims
+gathered first thing inside its rematerialized block, its d_inner columns
+kept split over "model", as the training rules lay them out. The
+embedding and the logits are the decoder families' (``lm.embed_rows``,
+``lm.token_loss``). Decode and prefill over a mesh (``models.decoding``)
+run the same forward, the cache's states split over d_inner too
+(``sharding.cache_specs`` puts d_inner, their longest dim, on "model").
 
-Decode and prefill over a mesh (``models.decoding``) run each layer
-forward-only column-parallel (``mamba.mamba1_forward(shards=)``): the
-layer's FSDP shards gathered, its d_inner columns kept split over
-"model", as the cache's states are (``sharding.cache_specs`` puts
-d_inner, their longest dim, on "model"). Where the states' d_inner is
-not split over "model" the layer is gathered whole instead, with the
+Where the "model" size does not divide d_inner (so ``spec_for`` leaves
+some of the layer's leaves whole, or the states' d_inner is not split)
+the layer is gathered whole instead (``Shards.gather_whole``), with the
 states, and every "model" rank computes it whole.
 """
 
@@ -37,29 +35,23 @@ from .common import (ParamCollector, ScanBlock, StackedCollector,
 from .decoding import MeshStep, one_device
 from .lm import _embed, _head, _logits, gather_head, token_loss
 from .mamba import (Mamba1State, init_mamba1, mamba1_decode, mamba1_forward,
-                    mamba1_init_state)
+                    mamba1_init_state, split_layout)
 
 
-def _mesh_plan(mesh, shards, cache_specs):
-    """(MeshStep or None, the layers' layout, column-parallel?, the states'
-    keeps) of a decode over ``mesh``."""
+def _mesh_plan(cfg: ArchConfig, mesh, shards, cache_specs):
+    """(MeshStep or None, the layers' layout, the mamba layout when the
+    layers run column-parallel, the states' keeps) of a decode over
+    ``mesh``."""
     if one_device(mesh):
-        return None, None, False, ()
+        return None, None, None, ()
     step = MeshStep(mesh, shards, cache_specs)
     lsh = shards.sub("layers", stacked=True)
-    cp = (step.split(cache_specs[0], 3) and step.split(cache_specs[1], 2)
-          and lsh.model_dim("mamba/w_in") is not None)
-    keeps = ({1: "batch", 3: "model"}, {1: "batch", 2: "model"}) if cp \
+    msh = split_layout(cfg, lsh)
+    if not (step.split(cache_specs[0], 3) and step.split(cache_specs[1], 2)):
+        msh = None
+    keeps = ({1: "batch", 3: "model"}, {1: "batch", 2: "model"}) if msh \
         else ({1: "batch"}, {1: "batch"})
-    return step, lsh, cp, keeps
-
-
-def _layer_of(p, lsh, cp: bool):
-    """A layer's weights for a mesh step: its FSDP shards gathered
-    (column-parallel), or the whole layer."""
-    if lsh is None:
-        return p
-    return lsh.gather(p) if cp else lsh.gather_whole(p)
+    return step, lsh, msh, keeps
 
 
 def ssm_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
@@ -69,7 +61,7 @@ def ssm_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
     position's logits, (conv (L, B, K-1, d_inner), ssm (L, B, d_inner,
     N))); over ``mesh`` every row's logits and this rank's state shards
     under ``cache_specs`` (see the module docstring)."""
-    step, lsh, cp, keeps = _mesh_plan(mesh, shards, cache_specs)
+    step, lsh, msh, keeps = _mesh_plan(cfg, mesh, shards, cache_specs)
     tokens = batch["tokens"]
     if step is not None:
         tokens = step.rows(batch)["tokens"]
@@ -79,10 +71,11 @@ def ssm_prefill(params, cfg: ArchConfig, batch, max_len: int, mesh=None,
     x = _embed(params, cfg, tokens, shards)
     convs, ssms = [], []
     for p in layer_slices(slice_layer(params, "layers")):
-        p = _layer_of(p, lsh, cp)
+        if lsh is not None:
+            p = lsh.gather_layer(p, msh is not None)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         y, st = mamba1_forward(slice_layer(p, "mamba"), cfg, h,
-                               return_state=True, shards=lsh if cp else None)
+                               return_state=True, shards=msh)
         x = x + y
         convs.append(st.conv)
         ssms.append(st.ssm)
@@ -114,13 +107,16 @@ def init_ssm_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
 
 def _block(cfg: ArchConfig, mesh=None, shards=None):
     """The layer's block; ``shards``: one layer's layout (its leaves are
-    gathered whole first thing in the block)."""
+    gathered first thing in the block: their FSDP dims, or whole in the
+    divisibility fallback)."""
+    msh = split_layout(cfg, shards)
+
     def block(p, carry):
         x = carry
         if shards is not None:
-            p = shards.gather_whole(p)
+            p = shards.gather_layer(p, msh is not None)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        y = mamba1_forward(slice_layer(p, "mamba"), cfg, h)
+        y = mamba1_forward(slice_layer(p, "mamba"), cfg, h, shards=msh)
         return constrain_act(x + y, mesh), None
     return block
 
@@ -161,7 +157,7 @@ def ssm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
     states are the only carry). The cache passed in is left as it was.
     Over ``mesh``: as ``lm.lm_decode_step``, each layer column-parallel
     (see the module docstring)."""
-    step, lsh, cp, keeps = _mesh_plan(mesh, shards, cache_specs)
+    step, lsh, msh, keeps = _mesh_plan(cfg, mesh, shards, cache_specs)
     backs = (None, None)
     if step is not None:
         tokens = step.rows({"tokens": tokens})["tokens"]
@@ -179,11 +175,12 @@ def ssm_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
         xt = x[:, t:t + 1]
         convs, ssms = [], []
         for i, p in enumerate(layers):
-            p = _layer_of(p, lsh, cp)
+            if lsh is not None:
+                p = lsh.gather_layer(p, msh is not None)
             h = rms_norm(xt, p["ln"], cfg.norm_eps)
             y, st = mamba1_decode(slice_layer(p, "mamba"), cfg, h,
                                   Mamba1State(conv_c[i], ssm_c[i]),
-                                  shards=lsh if cp else None)
+                                  shards=msh)
             xt = xt + y
             convs.append(st.conv)
             ssms.append(st.ssm)

@@ -16,9 +16,11 @@ prompt fills and the steps wrap (the S >= window prefill), deepseek-v2's
 drop-free at these token counts), mixtral's (a sliding window of 32 slots
 and experts), falcon-mamba's (column-parallel mamba1; with a d_inner of
 126, which 4 does not divide, the layer gathered whole at (1, 4)),
-zamba2's (mamba2 states gathered whole, the shared block's cache
-context-parallel) and seamless's (enc_out laid out by the dry-run's
-heuristic, gathered once a step).
+zamba2's (mamba2 split over "model" by heads, one head a rank at (1, 4):
+its states gathered whole once a step, each layer on its heads' ssm
+state, the new states all-gathered over the heads at the end of the
+step; the shared block's cache context-parallel) and seamless's (enc_out
+laid out by the dry-run's heuristic, gathered once a step).
 
   * (1, 1): the prefill's logits and every step's, bitwise the no-mesh
     run's (and the greedy tokens equal);
@@ -30,7 +32,10 @@ heuristic, gathered once a step).
     ``_cache_sharded``: equal greedy tokens, and within 1e-4 * max(1,
     |ref|), the JAX loop's parity tolerance;
   * the rank's cache shards gathered, against the one-device cache at
-    2e-5 (and their shapes the shard shapes of ``cache_specs``).
+    2e-5 (and their shapes the shard shapes of ``cache_specs``);
+  * at (2, 2) and (1, 4) no all-gather over "model" of a whole mamba leaf
+    (falcon-mamba, zamba2), but where d_inner 126 falls back to the whole
+    layer at (1, 4).
 """
 
 import dataclasses
@@ -136,7 +141,8 @@ def greedy(model, params, batch, feed=None):
 
 def run_case(case, root: Path, mesh):
     """One case on ``mesh`` (None: one device): (logits, tokens, the cache
-    gathered whole, the shard shapes against cache_specs')."""
+    gathered whole, the shard shapes against cache_specs', the collectives,
+    the all-gathers over "model" of a whole mamba leaf)."""
     from repro_torch.distributed import local_shard, shard_shape
     from repro_torch.distributed.collectives import gather_full
     from repro_torch.models import build_model
@@ -149,7 +155,10 @@ def run_case(case, root: Path, mesh):
         sh = model.shards()
         params = {k: local_shard(v, sh.specs[k], mesh).clone()
                   for k, v in params.items()}
-    logits, toks, cache = greedy(model, params, batch)
+    from test_torch_dist_train import WholeGathers, mamba_leaves
+    leaves = [] if mesh is None else mamba_leaves(full, model.shards())
+    with WholeGathers(leaves) as spy:
+        logits, toks, cache = greedy(model, params, batch)
     shapes_ok = True
     if mesh is not None:
         whole = [gather_full(t, sp, mesh) for t, sp in
@@ -159,7 +168,7 @@ def run_case(case, root: Path, mesh):
                                             cache.specs))
         cache = whole
     return logits, toks, list(cache), shapes_ok, dict(
-        mesh.counts) if mesh is not None else {}
+        mesh.counts) if mesh is not None else {}, spy.hits
 
 
 def rank_main(world: int, rank: int, store: str, root: str) -> None:
@@ -177,8 +186,10 @@ def rank_main(world: int, rank: int, store: str, root: str) -> None:
             for case in CASES:
                 if mesh is not None:
                     mesh.counts.clear()
-                logits, toks, cache, ok, counts = run_case(case, root, mesh)
-                res[f"{case}@{tag}"] = dict(shapes_ok=ok, counts=counts)
+                logits, toks, cache, ok, counts, hits = run_case(case, root,
+                                                                 mesh)
+                res[f"{case}@{tag}"] = dict(shapes_ok=ok, counts=counts,
+                                            whole_leaf_gathers=hits)
                 if rank == 0:
                     np.savez(out / f"{case}@{tag}.npz", logits=np_of(logits),
                              tokens=toks.numpy(),
@@ -347,6 +358,19 @@ def test_mesh_decode_matches_one_device(runs, case, shape):
     res = _res(runs, 4)[f"{case}@{tag}"]
     assert res["shapes_ok"], (case, tag)
     assert res["counts"], (case, tag)
+
+
+@pytest.mark.parametrize("shape", ((2, 2), (1, 4)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("case", ("falcon", "falcon_odd", "zamba2"))
+def test_mamba_leaves_gathered_whole_only_in_the_fallback(runs, case, shape):
+    """Prefill and decode run the mamba layers split over "model": no
+    all-gather over "model" returns a whole mamba leaf, but in the
+    divisibility fallback (d_inner 126 over 4)."""
+    runs, _ = runs
+    hits = _res(runs, 4)[f"{case}@{shape[0]}x{shape[1]}"][
+        "whole_leaf_gathers"]
+    assert (hits > 0) == (case == "falcon_odd" and shape == (1, 4)), hits
 
 
 @pytest.mark.parametrize("case", list(CASES))

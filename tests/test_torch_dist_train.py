@@ -36,10 +36,20 @@ otherwise. Cases and tolerances:
     single-device step, and the fp32 mixtral smoke config (SWA, experts)
     on (2, 2) against the JAX package's (2, 2) GSPMD step (the MoE aux
     loss is each shard's, averaged); the fp32 smoke configs of the ssm,
-    hybrid and audio families at (2, 2) and (4, 1), and falcon-mamba at
-    (1, 4) (d_inner split four ways, each mamba layer gathered whole),
-    against the single-device JAX step (one per config, made in the test
-    process) and the port's one-process step;
+    hybrid and audio families at (2, 2) and (4, 1), falcon-mamba and
+    zamba2 at (1, 4) (falcon-mamba's layers split over "model", d_inner
+    four ways; zamba2's mamba2 layers train whole), and falcon-mamba with
+    a d_inner of 126 at (1, 4) (4 does not divide it: each layer gathered
+    whole), against the single-device JAX step (one per problem, made in
+    the test process) and the port's one-process step; over a "model"
+    axis of more than one rank no all-gather over "model" returns a whole
+    falcon-mamba leaf, but in that fallback;
+  * one split mamba1 and mamba2 layer (the falcon-mamba and zamba2 smoke
+    weights' layer 0) at (1, 4), forward and backward: ``Mesh.counts``
+    kind by kind and byte for byte the design's (``models/mamba.py``), no
+    whole leaf gathered, y and x's gradient within 1e-5 relative and each
+    leaf's gradient (mamba2's replicated leaves summed over "model") within
+    1e-4 of its max of the layer whole in one process;
   * ``spec_for`` equal to the JAX function for every leaf of the 10 full
     configs at (16, 16), (2, 16, 16), (4, 2) and (1, 1), on shape stubs;
   * ``global_norm`` on a mixed sharded and replicated tree at 1e-6
@@ -61,6 +71,7 @@ otherwise. Cases and tolerances:
     both lines' losses from about ln V down.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -107,8 +118,10 @@ GRAD_CASES = {
     "deepseek": ((1, 4), "deepseek-v2-236b", 2, 8, "single"),
     "internvl": ((2, 2), "internvl2-76b", 4, 8, "single"),
     "mixtral": ((2, 2), "mixtral-8x22b", 4, 8, "sharded"),
-    # the ssm, hybrid and audio families (fp32 smoke): mamba's leaves
-    # gathered whole over "model" at (2, 2) and (1, 4)
+    # the ssm, hybrid and audio families (fp32 smoke): falcon-mamba's
+    # layers split over "model" at (2, 2) and (1, 4), and with a d_inner
+    # of 126, which 4 does not divide, each layer gathered whole (the
+    # divisibility fallback); zamba2's mamba2 layers train whole
     "falcon22": ((2, 2), "falcon-mamba-7b", 4, 8, "single"),
     "falcon41": ((4, 1), "falcon-mamba-7b", 4, 8, "single"),
     "falcon14": ((1, 4), "falcon-mamba-7b", 4, 8, "single"),
@@ -116,6 +129,9 @@ GRAD_CASES = {
     "zamba41": ((4, 1), "zamba2-1.2b", 4, 8, "single"),
     "seamless22": ((2, 2), "seamless-m4t-large-v2", 4, 8, "single"),
     "seamless41": ((4, 1), "seamless-m4t-large-v2", 4, 8, "single"),
+    "zamba14": ((1, 4), "zamba2-1.2b", 4, 8, "single"),
+    "falcon_odd14": ((1, 4), ("falcon-mamba-7b", dict(d_inner=126)), 4, 8,
+                     "single"),
 }
 FAMILY_CASES = [c for c in GRAD_CASES
                 if c.startswith(("falcon", "zamba", "seamless"))]
@@ -123,8 +139,18 @@ FAMILY_CASES = [c for c in GRAD_CASES
 
 def problem_of(case) -> str:
     """The weights-and-batch file of a GRAD_CASES case: a family's cases
-    share their config's (one JAX reference per config)."""
-    return GRAD_CASES[case][1] if case in FAMILY_CASES else case
+    share their config's (one JAX reference per config), but for a case
+    that overrides the config's widths."""
+    kw = GRAD_CASES[case][1]
+    return kw if case in FAMILY_CASES and isinstance(kw, str) else case
+
+
+def family_of(case):
+    """(config name, width overrides) of a family case."""
+    kw = GRAD_CASES[case][1]
+    return (kw, {}) if isinstance(kw, str) else kw
+
+
 PROBE_KW = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=2,
                 n_kv_heads=1, d_ff=96, vocab=256, head_dim=24,
                 tie_embeddings=True, remat="none", param_dtype="float32",
@@ -132,13 +158,18 @@ PROBE_KW = dict(name="t", family="dense", n_layers=2, d_model=48, n_heads=2,
 PROBE = dict(batch=96, seq=16, samples_per_node=16, n_iters=8)
 
 
+def smoke_fp32(name: str, **over) -> TArch:
+    return dataclasses.replace(tcfgs.get_config(name, smoke=True),
+                               param_dtype="float32",
+                               compute_dtype="float32", **over)
+
+
 def grad_cfg(case) -> TArch:
     kw = GRAD_CASES[case][1]
-    if isinstance(kw, str):
-        return dataclasses.replace(tcfgs.get_config(kw, smoke=True),
-                                   param_dtype="float32",
-                                   compute_dtype="float32")
-    return TArch(**kw)
+    if isinstance(kw, dict):
+        return TArch(**kw)
+    name, over = family_of(case)
+    return smoke_fp32(name, **over)
 
 
 def np_of(t: torch.Tensor) -> np.ndarray:
@@ -274,18 +305,152 @@ def _moe_forward(case, root: Path, mesh):
     return np_of(all_gather(y, 0, mesh, ("data",))), float(aux)
 
 
+class WholeGathers:
+    """Counts, while entered, the all-gathers over "model" that return a
+    tensor of one of ``shapes`` (``collectives.all_gather``, which every
+    gather of a weight goes through, patched)."""
+
+    def __init__(self, shapes):
+        self.hits, self.shapes = 0, {tuple(s) for s in shapes}
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives
+        from repro_torch.distributed.sharding import axes_of
+        self._orig = orig = collectives.all_gather
+
+        def spy(x, dim, mesh, axes):
+            out = orig(x, dim, mesh, axes)
+            if "model" in axes_of(axes) and tuple(out.shape) in self.shapes:
+                self.hits += 1
+            return out
+        collectives.all_gather = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import collectives
+        collectives.all_gather = self._orig
+
+
+def mamba_leaves(full: dict, shards) -> list:
+    """One layer's shapes of the stacked mamba leaves of ``full`` that
+    ``shards`` (the whole tree's layout) splits over "model"."""
+    lsh = shards.sub("layers", stacked=True)
+    return [tuple(v.shape[1:]) for k, v in full.items()
+            if k.startswith("layers/mamba/")
+            and lsh.model_dim(k[len("layers/"):]) is not None]
+
+
 def _grads(case, root: Path, mesh):
-    """Loss and gradients (gathered whole) of a GRAD_CASES case."""
+    """Loss and gradients (gathered whole) of a GRAD_CASES case, and the
+    all-gathers of a whole mamba leaf split over "model"."""
     from repro_torch.train.loop import loss_and_grads, sum_replicated_grads
     cfg = grad_cfg(case)
     z = load(root / f"{problem_of(case)}.npz")
     model = build_model(cfg, mesh=mesh, device="cpu")
     sh = model.shards()
-    total, metrics, grads = loss_and_grads(
-        model, _shard(_tensors(z["p"]), sh), _tensors(z["b"]))
+    with WholeGathers(mamba_leaves(z["p"], sh)) as spy:
+        total, metrics, grads = loss_and_grads(
+            model, _shard(_tensors(z["p"]), sh), _tensors(z["b"]))
     sum_replicated_grads(grads, sh)
-    return dict(loss=float(metrics["loss"]), total=float(total)), \
-        _full(grads, sh)
+    return dict(loss=float(metrics["loss"]), total=float(total),
+                whole_leaf_gathers=spy.hits), _full(grads, sh)
+
+
+# one split mamba layer, forward and backward: (batch rows, tokens a row)
+LAYER_B, LAYER_L = 2, 8
+SPLIT_LAYERS = ("falcon-mamba-7b", "zamba2-1.2b")
+
+
+@contextlib.contextmanager
+def card_products():
+    """``mamba``'s bf16 products from their inputs widened to fp32, rounded
+    once, as a card's bf16 GEMM accumulates in fp32 (the CPU's own bf16
+    products round otherwise)."""
+    from repro_torch.models import mamba
+    orig = mamba.tok_einsum
+
+    def widened(eq, x, w):
+        if x.dtype != torch.bfloat16:
+            return orig(eq, x, w)
+        return orig(eq, x.float(), w.float()).to(torch.bfloat16)
+    mamba.tok_einsum = widened
+    try:
+        yield
+    finally:
+        mamba.tok_einsum = orig
+
+
+def _layer_runs(cfg, whole: dict, msh, x, dy, mesh):
+    """One mamba layer, split over ``msh``'s "model" axis and whole in this
+    process, forward and backward: (y, x's gradient, the leaves, the
+    collectives, the all-gathers of a whole leaf) of each."""
+    from repro_torch.distributed.collectives import all_reduce_
+    from repro_torch.models.mamba import (MAMBA2_PARTIAL_KEYS,
+                                          mamba1_forward, mamba2_forward)
+    fwd = mamba1_forward if cfg.mamba_version == 1 else mamba2_forward
+    runs = []
+    for shards in (msh, None):
+        p = {k: (v if shards is None else local_shard(
+            v, msh.specs[k], mesh)).clone().requires_grad_()
+            for k, v in whole.items()}
+        xi = x.clone().requires_grad_()
+        mesh.counts.clear()
+        with WholeGathers([v.shape for k, v in whole.items()
+                           if msh.model_dim(k) is not None]) as spy:
+            y = fwd(p, cfg, xi, shards=shards)
+            y.backward(dy)
+        counts = dict(mesh.counts)
+        if shards is not None and cfg.mamba_version == 2:
+            for k in MAMBA2_PARTIAL_KEYS:   # the caller's sum
+                all_reduce_(p[k].grad, mesh, "model")
+        runs.append((y.detach(), xi.grad, p, counts, spy.hits))
+    return runs
+
+
+def _split_layers(root: Path, mesh) -> dict:
+    """Layer 0 of the falcon-mamba and zamba2 smoke problems' weights,
+    mamba1 and mamba2, split over ``mesh``'s "model" axis, forward and
+    backward from seeded x and dy: per config the collectives issued, the
+    all-gathers of a whole leaf, and the largest errors of y, x's
+    gradient and the rank's leaf gradients (each relative to its max)
+    against the layer whole in this process; for mamba2 also in bf16
+    under ``card_products``, the shares of y's and x's gradient elements
+    that differ from the whole layer's and whether every leaf gradient
+    is the whole layer's bitwise."""
+    out = {}
+    rng = np.random.default_rng(3)
+    for arch in SPLIT_LAYERS:
+        cfg = smoke_fp32(arch)
+        whole = {k[len("layers/mamba/"):]: torch.as_tensor(v[0])
+                 for k, v in load(root / f"{arch}.npz")["p"].items()
+                 if k.startswith("layers/mamba/")}
+        msh = build_model(cfg, mesh=mesh, device="cpu").shards().sub(
+            "layers", stacked=True).sub("mamba")
+        x, dy = (torch.as_tensor(rng.normal(size=(
+            LAYER_B, LAYER_L, cfg.d_model)).astype(np.float32))
+            for _ in range(2))
+        (y, gx, p, counts, hits), (y0, gx0, p0, _, _) = _layer_runs(
+            cfg, whole, msh, x, dy, mesh)
+        rel = lambda a, b: float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+        out[arch] = dict(
+            counts=counts, whole_leaf_gathers=hits, y_err=rel(y, y0),
+            x_grad_err=rel(gx, gx0),
+            leaf_grad_err=max(rel(p[k].grad, local_shard(
+                p0[k].grad, msh.specs[k], mesh)) for k in p))
+        if cfg.mamba_version == 2:
+            c16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                      compute_dtype="bfloat16")
+            with card_products():
+                (y, gx, p, _, _), (y0, gx0, p0, _, _) = _layer_runs(
+                    c16, {k: v.bfloat16() for k, v in whole.items()}, msh,
+                    x.bfloat16(), dy.bfloat16(), mesh)
+            differ = lambda a, b: float((a != b).float().mean())
+            out[arch]["bf16"] = dict(
+                y_differ=differ(y, y0), x_grad_differ=differ(gx, gx0),
+                leaf_grads_bitwise=all(torch.equal(p[k].grad, local_shard(
+                    p0[k].grad, msh.specs[k], mesh)) for k in p))
+    return out
 
 
 def _dp_step(root: Path, mesh):
@@ -438,6 +603,8 @@ def rank_main(world: int, rank: int, store: str, root: str) -> None:
                 res[case] = losses
                 if rank == 0:
                     save(out / f"{case}.npz", g=grads)
+            res["split_layers"] = _split_layers(root, _mesh(
+                (1, 4), store, rank, world))
             res["probe"] = _probe(root, _mesh((4, 1), store, rank, world))
             from repro_torch.distributed import Shards
             from repro_torch.optim import global_norm
@@ -777,19 +944,21 @@ def test_moe_forward_matches_jax_shard_map(runs, case):
 _FAMILY_REFS = {}
 
 
-def family_reference(root: Path, problem: str):
-    """(losses, grads) of a family config's problem: the JAX package's
-    single-device ``value_and_grad``, made once in this process (beside
-    ``jax_main``'s subprocess, whose share it would lengthen)."""
+def family_reference(root: Path, case):
+    """(losses, grads) of a family case's problem: the JAX package's
+    single-device ``value_and_grad``, made once a problem in this process
+    (beside ``jax_main``'s subprocess, whose share it would lengthen)."""
+    problem = problem_of(case)
     if problem not in _FAMILY_REFS:
         import jax
         import jax.numpy as jnp
         from repro.configs import get_config as jget
         from repro.models import build_model as jbuild
         z = load(root / f"{problem}.npz")
-        model = jbuild(dataclasses.replace(jget(problem, smoke=True),
+        name, over = family_of(case)
+        model = jbuild(dataclasses.replace(jget(name, smoke=True),
                                            param_dtype="float32",
-                                           compute_dtype="float32"))
+                                           compute_dtype="float32", **over))
         batch = {k: jnp.asarray(v) for k, v in z["b"].items()}
         (total, metrics), grads = jax.jit(jax.value_and_grad(
             lambda p: model.loss(p, batch), has_aux=True))(
@@ -805,7 +974,7 @@ def test_loss_and_grads_match_jax(runs, case):
     root, _ = runs
     got = _res(root, 4)[case]
     if case in FAMILY_CASES:
-        want, jg = family_reference(root, problem_of(case))
+        want, jg = family_reference(root, case)
     else:
         want = _res(root, "jax")[case]
         jg = load(root / "jax" / f"{case}.npz")["g"]
@@ -839,6 +1008,75 @@ def test_family_grads_match_one_process(runs, case):
         scale = max(float(np.abs(v).max()), 1e-30)
         err = float(np.abs(g[k] - v).max())
         assert err <= 1e-4 * scale, (case, k, err, scale)
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_mamba_leaves_gathered_whole_only_in_the_fallback(runs, case):
+    """Over a "model" axis of more than one rank falcon-mamba's layers run
+    split and no all-gather returns a whole mamba leaf split over "model",
+    but where 4 does not divide d_inner (the divisibility fallback);
+    zamba2's mamba2 layers train whole (``models/hybrid.py``: the split
+    layer serves prefill and decode)."""
+    root, _ = runs
+    hits = _res(root, 4)[case]["whole_leaf_gathers"]
+    if case == "falcon_odd14" or (case.startswith("zamba")
+                                  and GRAD_CASES[case][0][1] > 1):
+        assert hits > 0, (case, hits)
+    elif GRAD_CASES[case][0][1] > 1:
+        assert hits == 0, (case, hits)
+
+
+def split_layer_collectives(cfg, tokens: int, tp: int, nbytes: int = 4):
+    """``Mesh.counts`` of one mamba layer split over ``tp`` "model" ranks,
+    forward and backward, for ``tokens`` token rows of fp32 (the design
+    in ``models/mamba.py``'s docstring)."""
+    e, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    if cfg.mamba_version == 1:
+        cols = 2 * di
+        # forward: w_x's sum, "g"; backward: w_x's sum again, "f" on x
+        rows = [cfg.dt_rank + 2 * n, e] * 2
+        leaves = []
+    else:
+        nh = di // cfg.ssm_head_dim
+        cols = 2 * di + 2 * n + nh
+        # forward: the norm's sum of squares, "g"; backward: the norm's
+        # sum, "f" on x and on B and C (the replicated leaves' partial
+        # gradients the caller sums)
+        rows = [1, e, 1, e, 2 * n]
+    return {"all_gather": 1, "all_gather_bytes": tokens * cols * nbytes,
+            "reduce_scatter": 1,
+            "reduce_scatter_bytes": tokens * cols // tp * nbytes,
+            "all_reduce": len(rows),
+            "all_reduce_bytes": tokens * sum(rows) * nbytes}
+
+
+@pytest.mark.parametrize("arch", SPLIT_LAYERS)
+def test_split_mamba_layer_collectives(runs, arch):
+    """One split mamba1 and mamba2 layer at (1, 4), forward and backward:
+    the collectives of the design, kind by kind and byte for byte, no
+    whole leaf gathered, and the layer's values and gradients those of the
+    whole layer in one process (1e-5 relative; leaf gradients as the
+    family cases', 1e-4 of each leaf's max)."""
+    root, _ = runs
+    got = _res(root, 4)["split_layers"][arch]
+    assert got["counts"] == split_layer_collectives(
+        smoke_fp32(arch), LAYER_B * LAYER_L, 4), got["counts"]
+    assert got["whole_leaf_gathers"] == 0
+    assert got["y_err"] <= 1e-5 and got["x_grad_err"] <= 1e-5, got
+    assert got["leaf_grad_err"] <= 1e-4, got
+
+
+def test_split_mamba2_layer_rounds_as_one_device(runs):
+    """The split mamba2 layer in bf16 at (1, 4) rounds where one device
+    does (the sums over the ranks in fp32, rounded once): with bf16
+    products accumulated in fp32, as a card's are, y and x's gradient are
+    the whole layer's but for flips of fp32 summation order (under 1 % of
+    their elements; summing bf16 partials parts most of them) and every
+    leaf gradient is the whole layer's bitwise."""
+    root, _ = runs
+    got = _res(root, 4)["split_layers"]["zamba2-1.2b"]["bf16"]
+    assert got["y_differ"] < 1e-2 and got["x_grad_differ"] < 1e-2, got
+    assert got["leaf_grads_bitwise"], got
 
 
 def test_probe_ring_branch_matches_jax(runs):
