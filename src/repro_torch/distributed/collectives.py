@@ -353,11 +353,16 @@ class Shards:
     """The layout of a parameter sub-dict on a mesh: ``specs`` by key
     (relative to the sub-dict), with the collectives the model code needs.
     ``tp`` and ``mi`` are the "model" axis's size and this rank's index on
-    it; ``dp`` the batch axes' size."""
+    it; ``dp`` the batch axes' size. ``partial``: the keys of the leaves
+    replicated over "model" of which each "model" rank's work uses only
+    its part, so that its gradient of them is partial and the step sums
+    them over "model" (``train.loop.sum_replicated_grads``); set by
+    ``Model.shards`` for the whole tree, empty in a ``sub``."""
 
     def __init__(self, mesh: Mesh, specs: Dict[str, Spec]):
         self.mesh = mesh
         self.specs = specs
+        self.partial: Tuple[str, ...] = ()
         self.batch_axes = batch_axes_of(mesh)
         self.dp = mesh.size(self.batch_axes)
         self.tp = mesh.shape.get(MODEL, 1)

@@ -11,15 +11,19 @@ whole stack per group in the backward pass. Decode keeps one shared KV
 cache per group; the tail of ``n_layers % attn_every`` mamba layers has
 none.
 
-Over a training mesh (``shards``) each mamba2 layer gathers its leaves
-whole inside its rematerialized block (``Shards.gather_whole``) and every
-"model" rank computes it whole. The split layer (below) is not used in
-training yet: a bf16 step through it parts from one device's grad norm
-by more than the mesh gates allow, while one device's bf16 gradient is
-itself mostly rounding at full depth; what such a step is held to is
-decided first (ROADMAP C9). The shared block's weights are gathered over
-their FSDP axes once a step and it runs the Megatron branches of
-``gqa_forward`` and ``mlp_forward``.
+Over a training mesh (``shards``) each mamba2 layer runs split over
+"model" by heads (``mamba.mamba2_forward(shards=)``), forward and
+backward: its FSDP dims gathered first thing inside its rematerialized
+block, its d_inner leaves kept split. Its replicated ``conv_w``,
+``conv_b``, ``dt_bias``, ``a_log`` and ``d`` get each rank's part of
+their gradient; ``partial_keys`` names them to ``Model.shards``
+(``Shards.partial``) and the step sums them over "model" once
+(``train.loop.sum_replicated_grads``). Where the "model" size does not
+divide the head count (the divisibility fallback) the layer gathers its
+leaves whole (``Shards.gather_whole``) and every "model" rank computes it
+whole. The shared block's weights are gathered over their FSDP axes once
+a step and it runs the Megatron branches of ``gqa_forward`` and
+``mlp_forward``.
 
 Decode and prefill over a mesh (``models.decoding``) run each mamba2
 layer split over "model" by heads (``mamba.mamba2_forward(shards=)``, the
@@ -42,8 +46,8 @@ of the states'. The shared block's KV cache is context-parallel
 
 Where the "model" size does not divide the head count (or leaves one of
 ``w_in``, ``norm_w``, ``w_out`` whole) a decode gathers each mamba2 layer
-and its states whole instead (``Shards.gather_whole``), as training does,
-and every "model" rank computes the layer whole.
+and its states whole instead (``Shards.gather_whole``), as training's
+fallback does, and every "model" rank computes the layer whole.
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ from .common import (ParamCollector, ScanBlock, StackedCollector,
                      merge, positions_of, rms_norm, slice_layer)
 from .decoding import MeshStep, local_zeros, one_device
 from .lm import KV_KEEP, _embed, _head, _logits, gather_head, token_loss
-from .mamba import (Mamba2State, init_mamba2, mamba2_decode, mamba2_forward,
-                    mamba2_init_state, split_layout)
+from .mamba import (MAMBA2_PARTIAL_KEYS, Mamba2State, init_mamba2,
+                    mamba2_decode, mamba2_forward, mamba2_init_state,
+                    split_layout)
 from .mlp import init_mlp, mlp_forward
 
 
@@ -111,14 +116,28 @@ def init_hybrid_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
 
 
 def _mamba_block(cfg: ArchConfig, mesh=None, shards=None):
+    """The mamba2 layer's block; ``shards``: one layer's layout (its
+    leaves gathered first thing in the block: their FSDP dims when the
+    layer runs split over "model", else whole)."""
+    msh = split_layout(cfg, shards)
+
     def block(p, carry):
         x = carry
         if shards is not None:
-            p = shards.gather_whole(p)
+            p = shards.gather_layer(p, msh is not None)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        y = mamba2_forward(slice_layer(p, "mamba"), cfg, h)
+        y = mamba2_forward(slice_layer(p, "mamba"), cfg, h, shards=msh)
         return constrain_act(x + y, mesh), None
     return block
+
+
+def partial_keys(cfg: ArchConfig, shards) -> tuple:
+    """The leaves replicated over "model" whose gradient each "model" rank
+    computes only its part of (``Shards.partial``): the mamba2 layers'
+    ``MAMBA2_PARTIAL_KEYS`` where the layers run split."""
+    if split_layout(cfg, shards.sub("layers", stacked=True)) is None:
+        return ()
+    return tuple(f"layers/mamba/{k}" for k in MAMBA2_PARTIAL_KEYS)
 
 
 def _shared_attn(params, cfg: ArchConfig, x, positions, cache=None,
@@ -351,4 +370,4 @@ def hybrid_decode_step(params, cfg: ArchConfig, cache, tokens, cache_len,
 
 
 __all__ = ["hybrid_decode_step", "hybrid_init_cache", "hybrid_lm_loss",
-           "hybrid_prefill", "init_hybrid_lm"]
+           "hybrid_prefill", "init_hybrid_lm", "partial_keys"]

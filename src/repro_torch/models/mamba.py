@@ -52,8 +52,9 @@ give their leaves (d_inner on "model"), forward and backward:
     (``collectives.grad_on_first``): a bf16 pass rounds where one
     device's does. The replicated ``conv_w``, ``conv_b``, ``dt_bias``,
     ``a_log`` and ``d`` (MAMBA2_PARTIAL_KEYS) get each rank's part of
-    their gradient, for the caller to sum over "model". Prefill and decode
-    run it; training does not yet (``hybrid``'s docstring, ROADMAP C9).
+    their gradient, for the caller to sum over "model" (training: once a
+    step, ``train.loop.sum_replicated_grads``). Training, prefill and
+    decode run it.
     Collectives a layer: forward an all-gather (B x L x (2 d_inner + 2 N
     + H)) and two fp32 all-reduces (B x L x 1, B x L x d_model); backward
     a reduce-scatter and three fp32 all-reduces (the norm's B x L x 1,

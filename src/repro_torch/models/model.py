@@ -52,6 +52,7 @@ class Model:
     _init_cache: Callable
     _decode: Callable
     _prefill: Optional[Callable] = None
+    _partial: Optional[Callable] = None
     rules: Optional[Any] = None
     _shards: Optional[Any] = dataclasses.field(default=None, repr=False)
 
@@ -65,11 +66,15 @@ class Model:
 
     def shards(self):
         """The parameters' layout on the mesh (None without one), from the
-        family's own tree on the meta device."""
+        family's own tree on the meta device; with the family's partial
+        leaves (``Shards.partial``: the hybrid's split mamba2 layers')."""
         if self.mesh is not None and self._shards is None:
             params, axes = self._init(self.cfg, None)
-            self._shards = Shards(self.mesh, tree_specs(
-                axes, params, self.rules, self.mesh))
+            sh = Shards(self.mesh, tree_specs(axes, params, self.rules,
+                                              self.mesh))
+            if self._partial is not None:
+                sh.partial = self._partial(self.cfg, sh)
+            self._shards = sh
         return self._shards
 
     def with_mesh(self, mesh, rules=None) -> "Model":
@@ -158,7 +163,8 @@ def build_model(cfg: ArchConfig, mesh=None,
         model = Model(cfg, None, dev, hybrid.init_hybrid_lm,
                       hybrid.hybrid_lm_loss, hybrid.hybrid_init_cache,
                       hybrid.hybrid_decode_step,
-                      _prefill=hybrid.hybrid_prefill)
+                      _prefill=hybrid.hybrid_prefill,
+                      _partial=hybrid.partial_keys)
     elif fam == "audio":
         model = Model(cfg, None, dev, encdec.init_encdec, encdec.encdec_loss,
                       encdec.encdec_init_cache, encdec.encdec_decode_step,

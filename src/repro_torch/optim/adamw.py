@@ -80,7 +80,9 @@ def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     Over ``mesh``: ``tree`` maps keys to this rank's shards and ``specs``
     maps the same keys to their specs; each slice's sum is all-reduced
     over the mesh axes its leaf is split on (one all-reduce per set of
-    axes, of every such slice's sum at once), and the sums are added in
+    axes, of every such slice's sum at once; a replicated leaf, whose
+    gradient the step has summed to the same whole on every rank, is
+    counted once), and the sums are added in
     the same order as without a mesh, so a mesh of one rank gives the same
     bits."""
     if mesh is None:

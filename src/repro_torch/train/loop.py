@@ -12,7 +12,11 @@ step computes what the JAX package's GSPMD step computes: params, m and v
 are each rank's shards under ``rules`` (``distributed.sharding``), every
 rank is fed the global batch and runs its rows of it, the gradients of the
 leaves that are not split over the batch axes are summed over them (the
-FSDP reduce-scatter sums the others), the grad norm is the global one, and
+FSDP reduce-scatter sums the others), those of the leaves replicated over
+"model" of which each rank's work used its part (``Shards.partial``: the
+hybrid's split mamba2 layers') over "model", the grad norm is the global
+one (each such leaf counted once), so every rank applies the same update
+to a replicated leaf, and
 the NaN guard reads the global loss and norm, the same on every rank.
 Checkpoints are written whole by rank 0 (the JAX package's
 mesh-independent form) and restored onto any mesh, or none.
@@ -35,7 +39,7 @@ import torch
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..device import DeviceLike
-from ..distributed.collectives import all_reduce_
+from ..distributed.collectives import MODEL, all_reduce_
 from ..distributed.sharding import axes_of, local_shard
 from ..optim import AdamWConfig, adamw_init, global_norm
 from ..optim.adamw import adamw_update_, learning_rate
@@ -71,21 +75,33 @@ def loss_and_grads(model, params, batch):
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def sum_replicated_grads(grads, shards) -> None:
-    """Sum over the batch axes, in place of ``grads``, the gradients of the
-    leaves not split over them (one all-reduce per dtype, of those leaves
-    flattened together); the others' the FSDP reduce-scatter has summed."""
-    axes = shards.batch_axes
-    if shards.dp == 1:
-        return
-    keys = [k for k, spec in shards.specs.items()
-            if not set(axes) & {a for e in spec for a in axes_of(e)}]
+def _sum_flat(grads, keys, mesh, axes) -> None:
+    """Sum over ``axes``, in place of ``grads``, the gradients of ``keys``:
+    one all-reduce per dtype, of those leaves flattened together."""
     for dt in dict.fromkeys(grads[k].dtype for k in keys):
         ks = [k for k in keys if grads[k].dtype == dt]
         flat = all_reduce_(torch.cat([grads[k].reshape(-1) for k in ks]),
-                           shards.mesh, axes)
+                           mesh, axes)
         for k, part in zip(ks, flat.split([grads[k].numel() for k in ks])):
             grads[k] = part.view(grads[k].shape)
+
+
+def sum_replicated_grads(grads, shards) -> None:
+    """Sum, in place of ``grads``, over the batch axes the gradients of the
+    leaves not split over them (the others' the FSDP reduce-scatter has
+    summed), and over "model" those of ``shards.partial``, the leaves
+    replicated over "model" of which each rank's work used its part (the
+    hybrid's split mamba2 layers'); one all-reduce per dtype for each sum.
+    The other leaves replicated over "model" have their whole gradient on
+    every rank and are not summed over it."""
+    axes = shards.batch_axes
+    if shards.dp > 1:
+        _sum_flat(grads, [k for k, spec in shards.specs.items()
+                          if not set(axes) & {a for e in spec
+                                              for a in axes_of(e)}],
+                  shards.mesh, axes)
+    if shards.partial:
+        _sum_flat(grads, shards.partial, shards.mesh, MODEL)
 
 
 def shard_place(shards):

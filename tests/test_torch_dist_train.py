@@ -38,12 +38,16 @@ otherwise. Cases and tolerances:
     loss is each shard's, averaged); the fp32 smoke configs of the ssm,
     hybrid and audio families at (2, 2) and (4, 1), falcon-mamba and
     zamba2 at (1, 4) (falcon-mamba's layers split over "model", d_inner
-    four ways; zamba2's mamba2 layers train whole), and falcon-mamba with
+    four ways; zamba2's mamba2 layers by heads, their replicated leaves'
+    partial gradients summed over "model" once), and falcon-mamba with
     a d_inner of 126 at (1, 4) (4 does not divide it: each layer gathered
     whole), against the single-device JAX step (one per problem, made in
     the test process) and the port's one-process step; over a "model"
     axis of more than one rank no all-gather over "model" returns a whole
-    falcon-mamba leaf, but in that fallback;
+    falcon-mamba or zamba2 mamba leaf, but in that fallback;
+  * train() of zamba2's fp32 smoke config at (1, 4) and (2, 2), 3 steps,
+    against train() in one process: losses at 1e-5 relative, params at
+    1e-4 * max(1, max|p|) (the partial sum, ``global_norm`` and AdamW);
   * one split mamba1 and mamba2 layer (the falcon-mamba and zamba2 smoke
     weights' layer 0) at (1, 4), forward and backward: ``Mesh.counts``
     kind by kind and byte for byte the design's (``models/mamba.py``), no
@@ -119,9 +123,9 @@ GRAD_CASES = {
     "internvl": ((2, 2), "internvl2-76b", 4, 8, "single"),
     "mixtral": ((2, 2), "mixtral-8x22b", 4, 8, "sharded"),
     # the ssm, hybrid and audio families (fp32 smoke): falcon-mamba's
-    # layers split over "model" at (2, 2) and (1, 4), and with a d_inner
-    # of 126, which 4 does not divide, each layer gathered whole (the
-    # divisibility fallback); zamba2's mamba2 layers train whole
+    # and zamba2's mamba layers split over "model" at (2, 2) and (1, 4),
+    # and falcon-mamba with a d_inner of 126, which 4 does not divide,
+    # each layer gathered whole (the divisibility fallback)
     "falcon22": ((2, 2), "falcon-mamba-7b", 4, 8, "single"),
     "falcon41": ((4, 1), "falcon-mamba-7b", 4, 8, "single"),
     "falcon14": ((1, 4), "falcon-mamba-7b", 4, 8, "single"),
@@ -561,6 +565,32 @@ def _train_resume(out: Path, store: str, rank: int, world: int) -> dict:
                 continued=hc["loss"], data_step=data.step)
 
 
+# train() of zamba2's fp32 smoke config over meshes where its mamba2 layers
+# run split, against one process: steps, batch rows, tokens a row
+ZAMBA_TRAIN_MESHES = ((1, 4), (2, 2))
+ZAMBA_TRAIN = dict(steps=3, rows=4, seq=16)
+
+
+def zamba_train(mesh=None):
+    """train() of zamba2's fp32 smoke config for ZAMBA_TRAIN's steps (over
+    ``mesh``, or in one process): (losses, the params gathered whole)."""
+    from repro_torch.distributed.collectives import gather_full
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, train
+    cfg = smoke_fp32("zamba2-1.2b")
+    model = build_model(cfg, device="cpu")
+    state, hist = train(model, AdamWConfig(), TokenStream(
+        cfg.vocab, ZAMBA_TRAIN["rows"], ZAMBA_TRAIN["seq"], seed=4,
+        device="cpu"), TrainConfig(steps=ZAMBA_TRAIN["steps"], log_every=0),
+        mesh=mesh)
+    params = state["params"]
+    if mesh is not None:
+        sh = model.with_mesh(mesh).shards()
+        params = {k: gather_full(v, sh.specs[k], mesh)
+                  for k, v in params.items()}
+    return hist["loss"], {k: np_of(v) for k, v in params.items()}
+
+
 def rank_main(world: int, rank: int, store: str, root: str) -> None:
     """One rank of a world: every case of the world, each on its own mesh
     of the one gloo group; rank 0 writes the results."""
@@ -614,6 +644,12 @@ def rank_main(world: int, rank: int, store: str, root: str) -> None:
                                             specs, m22))
             _checkpoints(root, out, store, rank, world)
             res["resume"] = _train_resume(out, store, rank, world)
+            for shape in ZAMBA_TRAIN_MESHES:
+                name = "zamba_train{}{}".format(*shape)
+                res[name], params = zamba_train(_mesh(shape, store, rank,
+                                                      world))
+                if rank == 0:
+                    save(out / f"{name}.npz", p=params)
             # compressed_psum_grads on a mesh: the mean over its data ranks
             from repro_torch.optim import (compressed_psum_grads,
                                            init_compression_state)
@@ -1012,15 +1048,13 @@ def test_family_grads_match_one_process(runs, case):
 
 @pytest.mark.parametrize("case", FAMILY_CASES)
 def test_mamba_leaves_gathered_whole_only_in_the_fallback(runs, case):
-    """Over a "model" axis of more than one rank falcon-mamba's layers run
-    split and no all-gather returns a whole mamba leaf split over "model",
-    but where 4 does not divide d_inner (the divisibility fallback);
-    zamba2's mamba2 layers train whole (``models/hybrid.py``: the split
-    layer serves prefill and decode)."""
+    """Over a "model" axis of more than one rank falcon-mamba's and
+    zamba2's mamba layers run split and no all-gather returns a whole
+    mamba leaf split over "model", but where 4 does not divide d_inner
+    (the divisibility fallback)."""
     root, _ = runs
     hits = _res(root, 4)[case]["whole_leaf_gathers"]
-    if case == "falcon_odd14" or (case.startswith("zamba")
-                                  and GRAD_CASES[case][0][1] > 1):
+    if case == "falcon_odd14":
         assert hits > 0, (case, hits)
     elif GRAD_CASES[case][0][1] > 1:
         assert hits == 0, (case, hits)
@@ -1152,6 +1186,26 @@ def test_train_resumes_at_another_mesh(runs):
     assert res["restored_bitwise"]
     assert len(res["continued"]) == 1 and math.isfinite(res["continued"][0])
     assert res["data_step"] == 3
+
+
+@pytest.mark.parametrize("shape", ZAMBA_TRAIN_MESHES)
+def test_zamba2_split_train_matches_one_process(runs, shape):
+    """train() of zamba2's fp32 smoke config with its mamba2 layers split
+    over "model" (the replicated leaves' partial gradients summed once a
+    step, the global norm, AdamW) against the port's train() in one
+    process: losses at 1e-5 relative, params after the steps at 1e-4 x
+    max(1, max|p|) of each leaf."""
+    root, _ = runs
+    name = "zamba_train{}{}".format(*shape)
+    want_loss, want = zamba_train()
+    got_loss = _res(root, 4)[name]
+    assert len(got_loss) == ZAMBA_TRAIN["steps"]
+    for g, w in zip(got_loss, want_loss):
+        assert abs(g - w) <= 1e-5 * abs(w), (got_loss, want_loss)
+    got = load(root / "world4" / f"{name}.npz")["p"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        _close(got[k], v, 1e-4, k)
 
 
 def test_a_one_rank_mesh_is_the_single_device_step(runs):
