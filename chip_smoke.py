@@ -14,7 +14,7 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
   device   card name, count, and nvidia-smi's name + power limit;
   build    nvcc build of every kernel source (src/repro_torch/kernels/csrc),
            and the count of wgmma (HGMMA) instructions per kernel function
-           (gram's and project's must hold some);
+           (gram's two routes' and project's must hold some);
   kernels  each hand-written kernel against its plain PyTorch version on the
            card at the main path's shapes (the fit's, the probe's at the
            widths 3072, 4096, 2048 and 1024, and the probe ring's per rank
@@ -28,7 +28,10 @@ Needs one NVIDIA card and nvcc. Phases, each printing one JSON line:
            gram and project are also held to fp32 grade (within 2x the plain
            version's error against float64); bf16 input to gram (the setup's
            batch) and to project (the served slabs) must give the bits of
-           the widened fp32 input;
+           the widened fp32 input; each gram row records its split count
+           (gram.py:split_count: 1, or the CTAs of the short-row route's
+           cluster), and the probe ring's Grams at batch 1 must be bitwise
+           element 0 of the same Grams at batch 4;
   fit      the paper's Fig. 3/5 configuration: J=20 nodes x N=100 samples x
            M=784, ring(20, hops=2), global centering, 30 ADMM iterations,
            central kPCA on the pooled 2000 x 784; similarity at 1/10/30;
@@ -567,6 +570,7 @@ def gram_record(spec, x, g, label, y=None):
     bits of the widened fp32 batch."""
     import torch
     from repro_torch.kernels import gram_reference, gram_tiles
+    from repro_torch.kernels.gram.gram import split_count
 
     def run():
         return gram_tiles(spec, x, y, g)
@@ -610,8 +614,8 @@ def gram_record(spec, x, g, label, y=None):
             extra[f"fp64_err{side}_offdiag"] = float(
                 d[:, ~eye].max()) if n > 1 else 0.0
     return dict(
-        shape=label, **errors(got, want), **extra,
-        fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
+        shape=label, splits=split_count(n, k, m), **errors(got, want),
+        **extra, fp64_err=fp64_err, fp64_err_plain=fp64_err_plain,
         ms=event_ms(torch, run, 20),
         device_ms=sum(v for key, v in kern.items()
                       if "gram_" in key or SPLIT_KERNEL in key),
@@ -771,7 +775,7 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
     from repro_torch.core import build_setup, oos, ring
     from repro_torch.core.kernels_math import gram, resolve_gamma
     from repro_torch.data import kpca_dataset
-    from repro_torch.kernels import (project_partial_op,
+    from repro_torch.kernels import (gram_tiles, project_partial_op,
                                      project_partial_reference)
     g = torch.as_tensor(gamma, dtype=torch.float32, device=dev).reshape(())
     ids, _, _ = ring(20, 2).neighbor_array()
@@ -843,6 +847,21 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
                         y=ring_next[:nl].contiguous()),
             gram_record(spec, ring_slots[:nl].contiguous(), g_probe,
                         f"{nl}x{3 * rn}x{3 * rn}x3072 probe ring slots")]
+    # a rank's Grams (batch 1) are bitwise element 0 of the world-1 ring's
+    # (batch 4): the four-card probe's alpha rests on it
+    ring_bits = {}
+    for name, xs, ys in (("sweep", ring_nodes, ring_next),
+                         ("slots", ring_slots, None)):
+        xs = xs.contiguous()
+        ys = None if ys is None else ys.contiguous()
+        four = gram_tiles(spec, xs, ys, g_probe)
+        one = gram_tiles(spec, xs[:1], None if ys is None else ys[:1],
+                         g_probe)
+        torch.cuda.synchronize()
+        ring_bits[name] = bool(torch.equal(four[:1], one))
+        check(ring_bits[name], f"gram probe ring {name}: the batch of 1 is "
+                               f"not element 0 of the batch of "
+                               f"{DIST_RANKS} bit for bit")
 
     # project: the served models' real coefficients and centering terms (a
     # central fit on the pooled data, and its 500-landmark compression)
@@ -894,7 +913,8 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
                                         f"J{DIST_RANKS}xN{rn}xS3 probe ring"),
                             admm_record(ring_setup, f"J1xN{rn}xS3 probe ring",
                                         nodes=1)]
-    emit("kernels", tolerance=TOLERANCE, records=records)
+    emit("kernels", tolerance=TOLERANCE, records=records,
+         gram_ring_bits=ring_bits)
     for name, recs in records.items():
         worst = max(r["max_scaled_err"] for r in recs)
         check(worst <= TOL, f"{name} kernel disagrees with its plain version:"
@@ -4498,7 +4518,8 @@ def main(argv=None) -> int:
         ROOT)), sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
         ptxas=usage, hgmma_instructions=sum(hgmma.values()),
         hgmma_by_function=hgmma)
-    for kernel in ("gram_mma_kernel", "project_partials_kernel"):
+    for kernel in ("gram_mma_kernel", "gram_split_kernel",
+                   "project_partials_kernel"):
         check(any(kernel in f and n > 0 for f, n in hgmma.items()),
               f"no wgmma (HGMMA) instruction in {kernel}")
 

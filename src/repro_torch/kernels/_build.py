@@ -37,10 +37,10 @@ _p, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # C entry points (csrc/*.cu): every one returns cudaGetLastError().
 SIGNATURES = {
     # x, x is bf16, y (NULL: y is x), y is bf16, scratch, gamma, out,
-    # batch, n, k, m, padded m, tile rows, kind, degree, coef, scale,
-    # normalize, stream
+    # batch, n, k, m, padded m, tile rows, splits, kind, degree, coef,
+    # scale, normalize, stream
     "kpca_gram": [_p, _i, _p, _i, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-                  _i, _f, _f, _i, _p],
+                  _i, _i, _f, _f, _i, _p],
     # xq, xq is bf16, support hi, support lo, shift (NULL: none), a, ss,
     # gamma, scratch, cvec, bvec, out, b, l, m, padded m, cp1, feature
     # slices, with_epilogue, inv_l, kind, degree, coef, scale, normalize,

@@ -2,7 +2,8 @@
 // csrc/project.cu): shared-memory addresses, the 3xTF32 split pass that
 // writes both kernels' operands, mbarriers, TMA tile loads and their tensor maps, the 128-byte-swizzle
 // wgmma descriptor, and wgmma.mma_async .tf32 at the two N widths the
-// kernels use (m64n128k8 for gram, m64n32k8 for project). Everything here
+// kernels use (m64n128k8 for gram, m64n32k8 for project and gram's
+// short-row route where k <= 32). Everything here
 // is for sm_90a; the definitions sit in an anonymous namespace, one copy
 // per translation unit.
 #pragma once

@@ -3,9 +3,11 @@
 Replaces the TPU kernel ``src/repro/kernels/gram/gram.py:gram_tiles``. One
 Gram is one C call that launches a split pass per operand (its 3xTF32
 hi/lo halves at a padded row stride, and its row norms, into scratch) and
-the tensor-core main kernel. The wrapper checks the operands, allocates
-the output and the scratch with ``torch.empty`` and launches on PyTorch's
-current stream.
+the tensor-core main kernel: one block per output tile, or, where
+``split_count`` says so (short rows, long features), a thread-block
+cluster per Gram whose CTAs split the feature axis. The wrapper checks the
+operands, allocates the output and the scratch with ``torch.empty`` and
+launches on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ KINDS = {"rbf": 0, "linear": 1, "poly": 2}
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 ROW_PAD = 32            # floats: one 128-byte TMA row, one K-tile
 TILE_COLS = 128         # output columns per block
+SPLIT_TILE = 128        # rows and columns the short-row route's one tile holds
+SPLIT_MIN_KTILES = 32   # K-tiles of ROW_PAD features before the axis splits
+CLUSTER = 8             # CTAs a cluster: the portable maximum (PERF.md)
 
 
 def padded_stride(m: int) -> int:
@@ -41,6 +46,22 @@ def tile_rows(z: int, n: int, k: int, symmetric: bool) -> int:
     if symmetric:
         return 128
     return 128 if z * cdiv(n, 128) * cdiv(k, TILE_COLS) >= SMS else 64
+
+
+def split_count(n: int, k: int, m: int) -> int:
+    """CTAs of the thread-block cluster that splits one Gram's feature axis
+    (the short-row route), or 1 for one block per output tile. Split where
+    the whole n x k output is one tile (n, k <= 128) and there are at least
+    32 K-tiles (m > 992): there one block would walk every K-tile in series
+    while the card's other SMs idle. A function of (n, k, m) alone, never of
+    the batch, the card or the tile table: the split changes the summation
+    order, so element z of a batch gets the bits of the same operands alone
+    (the probe's ring on four cards is bitwise its world-1 ring), and no
+    tuning knob can change a result."""
+    if (n <= SPLIT_TILE and k <= SPLIT_TILE
+            and cdiv(m, ROW_PAD) >= SPLIT_MIN_KTILES):
+        return CLUSTER
+    return 1
 
 
 @autotune.register_dispatch_cache
@@ -67,9 +88,10 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
     is split once and only tiles on or above the diagonal run, each
     mirrored, so K equals K^T exactly. gamma a 0-d fp32 tensor (read on the
     device, so no host sync). ``rows``: output rows per block, 64 or 128
-    (None: ``dispatch_rows``, the tile table's or the derived choice).
-    Returns (Z, n, k) fp32. Counts one launch per Gram (split passes
-    included), and its bf16 launches apart.
+    (None: ``dispatch_rows``, the tile table's or the derived choice); the
+    short-row route (``split_count(n, k, m) > 1``) sizes its own tile and
+    ignores it. Returns (Z, n, k) fp32. Counts one launch per Gram (split
+    passes included), and its bf16 launches apart.
     """
     dev = x.device
     check_kernel_operand("x", x, 3, dev, OPERAND_DTYPES)
@@ -100,7 +122,7 @@ def gram_tiles(spec: KernelSpec, x: torch.Tensor, y: Optional[torch.Tensor],
             x.data_ptr(), int(x_bf16), None if symmetric else y.data_ptr(),
             int(y_bf16), scratch.data_ptr(), gamma.data_ptr(),
             out.data_ptr(), z, n, k, m,
-            mp, rows, KINDS[spec.kind],
+            mp, rows, split_count(n, k, m), KINDS[spec.kind],
             int(spec.degree), float(spec.coef), float(spec.scale),
             int(bool(spec.normalize)), stream_of(dev))
     check_launch("gram", rc)
@@ -113,4 +135,4 @@ gram_tiles.launches = 0
 gram_tiles.bf16_launches = 0       # of launches: a bf16 operand
 
 __all__ = ["KINDS", "dispatch_rows", "gram_tiles", "padded_stride",
-           "tile_rows"]
+           "split_count", "tile_rows"]

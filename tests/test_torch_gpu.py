@@ -53,7 +53,11 @@ SPECS = {
 
 @pytest.mark.parametrize("kind", sorted(SPECS))
 @pytest.mark.parametrize("n,k,m", [(1, 1, 1), (17, 9, 5), (64, 64, 64),
-                                   (100, 37, 300), (130, 257, 784)])
+                                   (100, 37, 300), (130, 257, 784),
+                                   # the short-row route (split_count > 1)
+                                   (24, 24, 3072), (72, 72, 3072),
+                                   (96, 96, 1024), (96, 96, 4096),
+                                   (100, 20, 1500), (40, 100, 2048)])
 def test_gram_kernel_matches_plain(cuda, kind, n, k, m):
     spec = SPECS[kind]
     x = _rand((n, m), n + m, cuda, 1.0 / np.sqrt(m))
@@ -101,7 +105,9 @@ def test_gram_kernel_tile_edges(cuda, kind, n, m):
 
 
 @pytest.mark.parametrize("kind", sorted(SPECS))
-@pytest.mark.parametrize("shape", ["130x257x784", "2000x784"])
+@pytest.mark.parametrize("shape", ["130x257x784", "2000x784",
+                                   "24x24x3072", "72x3072", "96x1024",
+                                   "96x4096"])
 def test_gram_kernel_is_fp32_grade(cuda, kind, shape):
     """3xTF32 keeps fp32's accuracy: against a float64 Gram on the card,
     the kernel's largest error is at most twice the plain fp32 version's.
@@ -121,7 +127,8 @@ def test_gram_kernel_is_fp32_grade(cuda, kind, shape):
     assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
 
 
-@pytest.mark.parametrize("case", ["2000x784", "20x500x784", "100x2000x784"])
+@pytest.mark.parametrize("case", ["2000x784", "20x500x784", "100x2000x784",
+                                  "3x96x3072"])
 def test_gram_kernel_same_bits_every_call(cuda, case):
     """No atomics: the same call gives the same bits every time."""
     spec = KernelSpec(kind="rbf", gamma=1.0 / 30)
@@ -825,7 +832,8 @@ def test_kernels_launch_on_every_card(cuda):
 
 @pytest.mark.parametrize("which", ["x", "y", "both", "self"])
 @pytest.mark.parametrize("shape", [(1, 17, 9, 5), (20, 100, 100, 784),
-                                   (1, 130, 257, 784)])
+                                   (1, 130, 257, 784), (1, 24, 24, 3072),
+                                   (4, 24, 24, 3072), (3, 96, 96, 3072)])
 def test_gram_kernel_bf16_bits_of_widened(cuda, which, shape):
     """A bf16 operand through the split pass's bf16 instance gives the bits
     of its widened fp32 copy, fp32 out, within the plain version's
@@ -1084,6 +1092,55 @@ def test_empty_table_dispatch_is_derived_on_card(empty_table):
             support_chunking(l)[1]
     for z, n in ((1, 2000), (20, 100)):
         assert dispatch_plan(z, n, n, dev) == center_plan(z, n, n)
+
+
+# the DKPCA probe's Grams (z, n, k, m, self-Gram): the ring's sweep and
+# slot Grams at a rank's and the world-1 ring's batch, the pooled mean
+# statistics at the narrowest and widest family width, the node Grams; and
+# self-Grams on the route's two smaller tiles (64 x 32, 64 x 128)
+SHORT_ROW_GRAMS = [(1, 24, 24, 3072, False), (4, 24, 24, 3072, False),
+                   (1, 72, 72, 3072, True), (4, 72, 72, 3072, True),
+                   (1, 96, 96, 1024, True), (1, 96, 96, 4096, True),
+                   (3, 96, 96, 3072, True), (2, 17, 17, 1024, True),
+                   (2, 40, 40, 2048, True)]
+
+
+@pytest.mark.parametrize("kind", sorted(SPECS))
+@pytest.mark.parametrize("z,n,k,m,sym", SHORT_ROW_GRAMS)
+def test_gram_short_row_route(cuda, kind, z, n, k, m, sym):
+    """The short-row route (a cluster splitting the feature axis) at the
+    probe's shapes: one counted launch; the kernel gate against the plain
+    version (2e-4 x max(1, |plain|)); fp32 grade (within 2x the plain
+    version's error against float64); a self-Gram exactly symmetric; and
+    every batch element the bits of the same operands alone, in a batch of
+    four (the probe's ring on four cards against its world-1 ring)."""
+    from repro_torch.kernels.gram.gram import split_count
+    assert split_count(n, k, m) > 1
+    spec = SPECS[kind]
+    g = torch.tensor(0.3, device=cuda)
+    x = _rand((4, n, m), n + m, cuda, 1.0 / np.sqrt(m))
+    y = None if sym else _rand((4, k, m), k + 2 * m, cuda, 1.0 / np.sqrt(m))
+    xz = x[:z].contiguous()
+    yz = None if sym else y[:z].contiguous()
+    launches = gram_tiles.launches
+    got = gram_tiles(spec, xz, yz, g)
+    assert gram_tiles.launches == launches + 1
+    plain = gram_reference(spec, xz, yz, gamma=g)
+    exact = gram_reference(spec, xz.double(), None if sym
+                           else yz.double(), gamma=g.double())
+    four = gram_tiles(spec, x, y, g)
+    torch.cuda.synchronize()
+    assert float(((got - plain).abs() / plain.abs().clamp(min=1.0)).max()) \
+        <= 2e-4
+    err = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert err <= 2.0 * err_plain, (err, err_plain)
+    if sym:
+        assert torch.equal(got, got.mT)
+    assert torch.equal(four[:z], got)
+    for e in range(4):
+        one = gram_tiles(spec, x[e:e + 1], None if sym else y[e:e + 1], g)
+        assert torch.equal(four[e:e + 1], one)
 
 
 def test_gram_rows_64_and_128_give_the_same_bits(cuda):

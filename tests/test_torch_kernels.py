@@ -47,7 +47,9 @@ def _tol(m):
 
 @pytest.mark.parametrize("kind", sorted(SPEC_KW))
 @pytest.mark.parametrize("n,k,m", [(8, 8, 4), (17, 9, 9), (100, 37, 37),
-                                   (33, 70, 300)])
+                                   (33, 70, 300),
+                                   # the probe's short rows, long features
+                                   (24, 24, 3072), (96, 96, 4096)])
 def test_gram_op_matches_jax(kind, n, k, m):
     x = _rand((n, m), n + m, 1 / np.sqrt(m))
     y = _rand((k, m), k + m + 1, 1 / np.sqrt(m))
