@@ -1,0 +1,8 @@
+"""Share of the traced fits' window in which no device operation ran.
+Moves fit_s."""
+
+from kpcabench.metrics import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)

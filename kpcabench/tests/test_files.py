@@ -1,0 +1,144 @@
+"""BENCHMARK.json and every file it names: parse, keys, names, units."""
+
+import json
+import re
+from pathlib import Path
+
+import pytest
+
+from kpcabench import common
+
+ROOT = common.ROOT
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+STAGED = json.loads((ROOT / "kpcabench" / "staged.json").read_text())
+BOTH = common.with_staged(BENCH)
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
+TEXT_MAX = 200
+KEYS = {
+    "configs": {"name", "source", "file", "reduced", "why"},
+    "workloads": {"name", "config", "traffic", "chips", "why"},
+    "end_to_end": {"name", "unit", "better", "bound", "source"},
+    "per_layer": {"name", "unit", "better", "source", "layer", "moves"},
+}
+SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert BENCH["paths"] == ["kpcabench"]
+    assert len(BENCH["command"]) <= 32
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+@pytest.mark.parametrize("doc", ["BENCHMARK.json", "staged.json"])
+@pytest.mark.parametrize("section", sorted(KEYS))
+def test_entries(section, doc):
+    entries = (BENCH if doc == "BENCHMARK.json" else STAGED)[section]
+    names = [e["name"] for e in BOTH[section]]
+    assert len(names) == len(set(names))
+    for e in entries:
+        extra = {"workloads"} if section in ("end_to_end", "per_layer") \
+            else set()
+        assert KEYS[section] <= set(e) <= KEYS[section] | extra, e["name"]
+        assert NAME.match(e["name"]), e["name"]
+        for key in ("why", "layer"):
+            if key in e:
+                assert 1 <= len(e[key]) <= TEXT_MAX and "\n" not in e[key]
+        if section == "configs":
+            assert 1 <= len(e["source"]) <= TEXT_MAX
+        if "unit" in e:
+            assert UNIT.match(e["unit"]), e["unit"]
+            assert e["better"] in ("lower", "higher")
+            assert e["source"] in SOURCES
+
+
+def test_paths_and_files():
+    for p in BENCH["paths"] + [c["file"] for c in BENCH["configs"]]:
+        assert PATH.match(p) and not p.startswith("/") and ".." not in p
+    for f in (ROOT / "kpcabench").rglob("*"):
+        if "__pycache__" in f.parts or f.is_dir():
+            continue
+        rel = f.relative_to(ROOT).as_posix()
+        assert PATH.match(rel), rel
+
+
+def test_configs_are_used_and_uncut():
+    used = {w["config"] for w in BENCH["workloads"]}
+    assert {c["name"] for c in BENCH["configs"]} == used
+    for c in BOTH["configs"]:
+        assert c["reduced"] == []
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+        assert cfg["features"] == 784 and cfg["samples_per_node"] == 100
+        assert cfg["iterations"] == 30 and cfg["hops"] == 2
+
+
+def test_end_to_end_rules():
+    e2e = {m["name"]: m for m in BOTH["end_to_end"]}
+    assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in \
+        e2e["setup_s"]
+    for m in e2e.values():
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+
+
+@pytest.mark.parametrize("w", BOTH["workloads"], ids=lambda w: w["name"])
+def test_cell_files_and_metrics(w):
+    assert w["chips"] in (1, 4)
+    cell = common.load_cell(w["name"], BENCH)
+    assert cell.traffic["kind"] in ("fit", "ring_fit", "serve")
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert cell.per_layer
+    for m in cell.per_layer:
+        assert m["moves"] in e2e
+        assert callable(common.reader(m["name"]))
+    assert set(cell.spec["limits"]) and all(
+        v > 0 for v in cell.spec["limits"].values())
+
+
+def test_per_layer_rules():
+    e2e = {m["name"] for m in BOTH["end_to_end"]}
+    layers = {}
+    for m in BOTH["per_layer"]:
+        assert m["moves"] in e2e
+        if m["name"].endswith("_roofline"):
+            assert m["unit"] == "%"
+        layers.setdefault(m["layer"], set()).add(m["name"])
+    assert {"kernels", "solver", "setup", "device"} <= set(layers)
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert set(m.get("workloads", cells)) <= cells, m["name"]
+
+
+def test_four_chip_share():
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_time_budget():
+    cells = 24
+    runs = 2 + 14 * cells
+    total = runs * (BENCH["run_seconds"] + 60) + cells * 2 * 90 + 1200
+    assert total <= 43200
+
+
+def test_no_result_from_the_benchmark_alone(tmp_path):
+    """In a directory that holds only BENCHMARK.json and the files under
+    paths (no program), a run exits non-zero and prints no result."""
+    import shutil
+    import subprocess
+    import sys
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(ROOT / "kpcabench", tmp_path / "kpcabench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    out = subprocess.run(
+        [sys.executable, "kpcabench/run.py", "--workload", "fit-j80",
+         "--seed", "1", "--seconds", "1", "--trace", "0", "--dry-run"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
