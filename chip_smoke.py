@@ -994,7 +994,6 @@ def serve_requests(dev, models, requests, label) -> dict:
                          components=mdl.n_components, max_abs_err=max(errs),
                          queries=rows, wall_s=wall,
                          queries_per_s_wall=rows / wall,
-                         queries_per_s_device=engine.stats.queries_per_s,
                          padded_rows=engine.stats.n_padded)
         check(max(errs) <= TOL, f"{label} engine ({name}) disagrees with the"
                                 f" plain projection: {max(errs):.3g} > {TOL}")

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_f32, resolve_device
+from ..obs import trace
 from .kernels_math import (KernelSpec, center_gram, gram, psd_jitter_eigh,
                            resolve_gamma)
 from .rho import RhoSchedule, auto_rho
@@ -121,51 +122,64 @@ def build_setup(x_nodes, graph: Graph, spec: KernelSpec,
     if center not in ("global", "neighborhood", "block", "none"):
         raise ValueError(f"unknown center mode {center!r}")
     dev = resolve_device(device)
-    x_nodes = as_f32(x_nodes, dev)
-    j, n, m_feat = x_nodes.shape
-    if j != graph.n_nodes:
-        raise ValueError(f"{j} nodes of data for a {graph.n_nodes}-node graph")
-    ids, rev, nmask = graph.neighbor_array()
-    s = ids.shape[1] + 1
-    src = np.concatenate([np.arange(j, dtype=np.int64)[:, None], ids], axis=1)
-    rsl = np.concatenate([np.zeros((j, 1), np.int64), rev + 1], axis=1)
-    mask = np.concatenate([np.full((j, 1), include_self), nmask], axis=1)
-    # slot-0 blocks (K_j) are always needed even when the self *constraint*
-    # is disabled, so Gram validity masking uses a mask with slot 0 on.
-    gmask = np.concatenate([np.full((j, 1), True), nmask], axis=1)
-    src_t = torch.as_tensor(src, device=dev)
-    rsl_t = torch.as_tensor(rsl.astype(np.int64), device=dev)
+    with trace.span("setup.build"):
+        x_nodes = as_f32(x_nodes, dev)
+        j, n, m_feat = x_nodes.shape
+        if j != graph.n_nodes:
+            raise ValueError(
+                f"{j} nodes of data for a {graph.n_nodes}-node graph")
+        with trace.span("setup.tables"):
+            ids, rev, nmask = graph.neighbor_array()
+            s = ids.shape[1] + 1
+            src = np.concatenate([np.arange(j, dtype=np.int64)[:, None], ids],
+                                 axis=1)
+            rsl = np.concatenate([np.zeros((j, 1), np.int64), rev + 1], axis=1)
+            mask = np.concatenate([np.full((j, 1), include_self), nmask],
+                                  axis=1)
+            # slot-0 blocks (K_j) are always needed even when the self
+            # *constraint* is disabled, so Gram validity masking uses a mask
+            # with slot 0 on.
+            gmask = np.concatenate([np.full((j, 1), True), nmask], axis=1)
+            src_t = torch.as_tensor(src, device=dev)
+            rsl_t = torch.as_tensor(rsl.astype(np.int64), device=dev)
+            mask_t = torch.as_tensor(mask, device=dev)
+            valid = torch.as_tensor(np.repeat(gmask, n, axis=1), device=dev)
 
-    # A caller that REBUILDS a setup mid-run pins the original gamma so the
-    # kernel — and the warm-started iterate — stays the same operator.
-    if gamma is None:
-        gamma = resolve_gamma(spec, x_nodes.reshape(j * n, -1))
-    gamma = torch.as_tensor(gamma, dtype=torch.float32, device=dev)
+        # A caller that REBUILDS a setup mid-run pins the original gamma so
+        # the kernel — and the warm-started iterate — stays the same
+        # operator.
+        if gamma is None:
+            with trace.span("setup.gamma"):
+                gamma = resolve_gamma(spec, x_nodes.reshape(j * n, -1))
+        gamma = torch.as_tensor(gamma, dtype=torch.float32, device=dev)
 
-    # Every node's slot data stacked: (J, S*N, M), then all J Grams in ONE
-    # batched gram launch.
-    xs = x_nodes[src_t].reshape(j, s * n, m_feat)
-    kfull = gram(spec, xs, gamma=gamma)                      # (J, SN, SN)
-    valid = torch.as_tensor(np.repeat(gmask, n, axis=1), device=dev)
-    if center == "neighborhood":
-        kfull = _masked_center(kfull, valid)
-    elif center == "global":
-        m_glob, mu_bar = kernel_mean_stats(x_nodes, spec, gamma)
-        mf = m_glob[src_t].reshape(j, s * n)
-        v = valid.to(kfull.dtype)
-        kfull = (kfull - mf[:, :, None] - mf[:, None, :] + mu_bar) \
-            * v[:, :, None] * v[:, None, :]
-    kcross = kfull.reshape(j, s, n, s, n).permute(0, 1, 3, 2, 4)
-    if center == "block":
-        kcross = center_gram(kcross)
-    kcross = kcross.contiguous()                             # (J, S, S, N, N)
+        # Every node's slot data stacked: (J, S*N, M), then all J Grams in
+        # ONE batched gram launch.
+        with trace.span("setup.gram"):
+            xs = x_nodes[src_t].reshape(j, s * n, m_feat)
+            kfull = gram(spec, xs, gamma=gamma)                  # (J, SN, SN)
+        if center == "global":
+            with trace.span("setup.mean_stats"):
+                m_glob, mu_bar = kernel_mean_stats(x_nodes, spec, gamma)
+        with trace.span("setup.center"):
+            if center == "neighborhood":
+                kfull = _masked_center(kfull, valid)
+            elif center == "global":
+                mf = m_glob[src_t].reshape(j, s * n)
+                v = valid.to(kfull.dtype)
+                kfull = (kfull - mf[:, :, None] - mf[:, None, :] + mu_bar) \
+                    * v[:, :, None] * v[:, None, :]
+            kcross = kfull.reshape(j, s, n, s, n).permute(0, 1, 3, 2, 4)
+            if center == "block":
+                kcross = center_gram(kcross)
+            kcross = kcross.contiguous()                     # (J, S, S, N, N)
+            kj = kcross[:, 0, 0].contiguous()                # (J, N, N)
 
-    kj = kcross[:, 0, 0].contiguous()                        # (J, N, N)
-    lam, vec = psd_jitter_eigh(kj, rel_eps)
-    return DkpcaSetup(x=x_nodes, k=kj, lam=lam, vec=vec, kcross=kcross,
-                      src=src_t, rsl=rsl_t,
-                      mask=torch.as_tensor(mask, device=dev), gamma=gamma,
-                      include_self=include_self)
+        with trace.span("setup.eigh"):
+            lam, vec = psd_jitter_eigh(kj, rel_eps)
+        return DkpcaSetup(x=x_nodes, k=kj, lam=lam, vec=vec, kcross=kcross,
+                          src=src_t, rsl=rsl_t, mask=mask_t, gamma=gamma,
+                          include_self=include_self)
 
 
 def _slot_rho(setup: DkpcaSetup, rho1: float, rho2: float) -> torch.Tensor:
@@ -213,17 +227,19 @@ def run_admm(setup: DkpcaSetup, n_iters: int = 30, rho1: float = 100.0,
     ``init`` defaults to the local-solution warm start."""
     if rho2 is None:
         rho2 = RhoSchedule()
-    if alpha0 is None:
-        alpha0 = initial_alpha(setup, init, seed)
-    alpha0 = as_f32(alpha0, setup.device)
-    rho2s = [rho2.at(t) for t in range(n_iters)]
-    rho1s = [float(rho1) if setup.include_self else 0.0] * n_iters
-    ops, comm = dense_parts(setup)
-    state, ahist, lhist, rhist = run_steps(
-        ops, comm, init_state(alpha0, setup.n_slots), rho1s, rho2s, project)
-    return DkpcaResult(alpha=state.alpha, alpha_hist=ahist, lagrangian=lhist,
-                       primal_residual=rhist,
-                       rho_hist=torch.tensor(rho2s, dtype=torch.float32))
+    with trace.span("solver.run"):
+        if alpha0 is None:
+            alpha0 = initial_alpha(setup, init, seed)
+        alpha0 = as_f32(alpha0, setup.device)
+        rho2s = [rho2.at(t) for t in range(n_iters)]
+        rho1s = [float(rho1) if setup.include_self else 0.0] * n_iters
+        ops, comm = dense_parts(setup)
+        state, ahist, lhist, rhist = run_steps(
+            ops, comm, init_state(alpha0, setup.n_slots), rho1s, rho2s,
+            project)
+        return DkpcaResult(alpha=state.alpha, alpha_hist=ahist,
+                           lagrangian=lhist, primal_residual=rhist,
+                           rho_hist=torch.tensor(rho2s, dtype=torch.float32))
 
 
 def admm_iteration(setup: DkpcaSetup, alpha: torch.Tensor, b: torch.Tensor,

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, as_f32, resolve_device
+from ..obs import trace
 from .kernels_math import KernelSpec, gram, resolve_gamma
 
 
@@ -99,16 +100,23 @@ def from_dual(x_train, alpha, spec: KernelSpec,
     gram launch on the card) for the kernel mean statistics the centered
     score needs.
     """
-    dev = resolve_device(device)
+    with trace.span("package.build"):
+        return _from_dual(x_train, alpha, spec, gamma, center,
+                          resolve_device(device))
+
+
+def _from_dual(x_train, alpha, spec: KernelSpec, gamma, center: bool,
+               dev: torch.device) -> FittedKpca:
     x_train = as_f32(x_train, dev)
     alpha = _as_2d(as_f32(alpha, dev))
     g = resolve_gamma(spec, x_train) if gamma is None \
         else torch.as_tensor(gamma, dtype=torch.float32, device=dev)
     c = alpha.shape[1]
     if center:
-        k_raw = gram(spec, x_train, gamma=g)
-        m = torch.mean(k_raw, dim=1)                      # (N,)
-        mu_bar = torch.mean(k_raw)
+        with trace.span("package.mean_stats"):
+            k_raw = gram(spec, x_train, gamma=g)
+            m = torch.mean(k_raw, dim=1)                  # (N,)
+            mu_bar = torch.mean(k_raw)
         alpha_sum = torch.sum(alpha, dim=0)               # (C,)
         row_mean_coef = -alpha_sum
         bias = mu_bar * alpha_sum - m @ alpha
@@ -147,14 +155,15 @@ def from_decentralized(x_nodes, alpha, spec: KernelSpec,
     average component on the pooled support set.
     """
     dev = resolve_device(device)
-    x_nodes = as_f32(x_nodes, dev)
-    j, n, m = x_nodes.shape
-    if not isinstance(alpha, (list, tuple)):
-        alpha = [alpha]
-    pooled_alpha = torch.stack(
-        [as_f32(a, dev).reshape(j * n) for a in alpha], dim=1) / j
-    return from_dual(x_nodes.reshape(j * n, m), pooled_alpha, spec,
-                     gamma=gamma, center=center, device=dev)
+    with trace.span("package.build"):
+        x_nodes = as_f32(x_nodes, dev)
+        j, n, m = x_nodes.shape
+        if not isinstance(alpha, (list, tuple)):
+            alpha = [alpha]
+        pooled_alpha = torch.stack(
+            [as_f32(a, dev).reshape(j * n) for a in alpha], dim=1) / j
+        return _from_dual(x_nodes.reshape(j * n, m), pooled_alpha, spec,
+                          gamma, center, dev)
 
 
 def _pool_alpha(alpha: Union[torch.Tensor, Sequence[torch.Tensor]],

@@ -531,15 +531,18 @@ def run_steps(ops: SolverOps, comm: DenseComm, state: AdmmState,
     ahist, lhist, rhist = [], [], []
     for i, (rho1, rho2) in enumerate(zip(rho1s, rho2s)):
         rho_slots = slot_rho(ops.mask, rho1, rho2)
-        if link_mask is None:
-            new, res = admm_step(ops, comm, state, rho_slots, project)
-        else:
-            sm = link_mask[i]
-            new, res = admm_step(ops, FaultyComm(comm, sm), state,
-                                 rho_slots, project, slot_mask=sm)
+        with trace.span("solver.iter"):
+            if link_mask is None:
+                new, res = admm_step(ops, comm, state, rho_slots, project)
+            else:
+                sm = link_mask[i]
+                new, res = admm_step(ops, FaultyComm(comm, sm), state,
+                                     rho_slots, project, slot_mask=sm)
         # Theorem-2 pairing: L(alpha^t, Z^t, eta^t) with Z^t generated from
         # the incoming (alpha^t, eta^t) — i.e. this step's g.
-        lhist.append(lagrangian(ops, state.alpha, state.b, new.g, rho_slots))
+        with trace.span("solver.lagrangian"):
+            lhist.append(lagrangian(ops, state.alpha, state.b, new.g,
+                                    rho_slots))
         ahist.append(new.alpha)
         rhist.append(res)
         state = new

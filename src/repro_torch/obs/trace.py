@@ -1,8 +1,9 @@
 """Low-overhead span tracer with Chrome-trace/Perfetto export.
 
-A copy of the JAX package's module of the same name (stdlib only), so the
-port imports nothing of ``repro``; the names it publishes are the same in
-both packages, so one dashboard reads either.
+A copy of the JAX package's module of the same name (stdlib only), so
+the port imports nothing of ``repro``, plus a bridge to ``torch.profiler``
+(below); the names it publishes are the same in both packages, so one
+dashboard reads either.
 
 The flight recorder for the serving + solver stack: instrumented code
 brackets work in named spans —
@@ -12,11 +13,19 @@ brackets work in named spans —
     with trace.span("serve.pack", requests=len(entries)):
         slabs = list(iter_slabs(...))
 
-and a run launched with ``--trace-out trace.json`` (``launch/serve_kpca``,
-``launch/train``, ``benchmarks/run``) writes every recorded span as a
-Chrome-trace JSON that ``chrome://tracing`` or https://ui.perfetto.dev
-renders as a per-thread timeline (docs/OBSERVABILITY.md lists the span
-taxonomy).
+and a run launched with ``--trace-out trace.json`` (the port's launchers
+``python -m repro_torch.launch.serve_kpca`` and ``python -m
+repro_torch.launch.train``) writes every recorded span as a Chrome-trace
+JSON that ``chrome://tracing`` or https://ui.perfetto.dev renders as a
+per-thread timeline (docs/OBSERVABILITY.md lists the span taxonomy; the
+port's fit spans are listed in PERF.md, section 3).
+
+While a torch profiler records, an enabled tracer also opens every span
+as a ``torch.profiler.record_function`` range of the same name, so the
+span sits in the profiler's host timeline on the device events' clock,
+and the profiler's launch correlation ties each kernel to the span that
+launched it. ``instant`` and ``complete`` stay in the ring buffer only (a
+profiler range cannot be backdated). torch is looked up, never imported.
 
 Design constraints, in order:
 
@@ -46,6 +55,7 @@ span ending now; ``instant(name)`` records a point event.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -72,25 +82,42 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a torch
+    profiler records, else None. torch is taken from ``sys.modules``, so
+    a process that never imported it pays a dict lookup."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.autograd.profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
 class Span:
     """One live span: records a complete ("X") event on ``__exit__`` —
     including on the exception path, so a raising body still closes its
-    span and the trace tree stays well-formed."""
+    span and the trace tree stays well-formed. While a torch profiler
+    records, it is also a ``record_function`` range."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._t0 = 0
+        self._range = None
 
     def __enter__(self) -> "Span":
+        self._range = _profiler_range(self.name)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         end = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         self._tracer._record("X", self.name, self._t0, end - self._t0,
                              self.attrs)
         return False

@@ -87,10 +87,6 @@ class EngineStats:
     per_request: Deque[RequestStats] = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=PER_REQUEST_WINDOW))
 
-    @property
-    def queries_per_s(self) -> float:
-        return self.n_queries / self.total_time_s if self.total_time_s else 0.0
-
     def routing_summary(self) -> str:
         """Compact ``policy:count`` rendering of the sharded routing
         decisions (bench ``derived`` strings); "-" when nothing routed
