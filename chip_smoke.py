@@ -769,12 +769,55 @@ def admm_record(setup, label, nodes=None):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def eigh_record(k, label):
+    """The Jacobi eigensolve on node Grams k (B, n, n) against its plain
+    version on the same tensor: the eigenvalues and V diag(lam) V^T (the
+    vectors themselves are a basis of their own within the tail's clustered
+    eigenvalues), with V^T V and the sweeps each took; timed as the kernel,
+    the plain version and ``torch.linalg.eigh`` (cuSOLVER's batched Jacobi,
+    what the fit called before). Bound: 9 n^3 operations a matrix (a
+    Householder eigendecomposition with vectors, about one Jacobi sweep) at
+    the fp32 peak, against A read and lam, V written once."""
+    import torch
+    from repro_torch.kernels import sym_eigh, sym_eigh_reference
+
+    def run():
+        return sym_eigh(k)
+
+    def plain():
+        return sym_eigh_reference(k)
+
+    def outer(lam, vec):
+        return vec @ torch.diag_embed(lam) @ vec.transpose(1, 2)
+
+    lam, vec, sweeps = run()
+    plam, pvec, psweeps = plain()
+    torch.cuda.synchronize()
+    errs = [errors(lam, plam), errors(outer(lam, vec), outer(plam, pvec))]
+    b, n, _ = k.shape
+    b_ms, b_by = bound(flops=9 * b * n ** 3, nbytes=4 * b * (2 * n * n + n))
+    return dict(
+        shape=label, max_abs_err=max(e["max_abs_err"] for e in errs),
+        max_scaled_err=max(e["max_scaled_err"] for e in errs),
+        reconstruction_err=float((outer(lam, vec) - k).abs().max()),
+        orthogonality_err=float((vec.transpose(1, 2) @ vec - torch.eye(
+            n, device=k.device)).abs().max()),
+        sweeps=sorted(set(sweeps.tolist())),
+        plain_sweeps=sorted(set(psweeps.tolist())),
+        ms=event_ms(torch, run, 20),
+        device_ms=device_ms(torch, run, ("jacobi_eigh_kernel",),
+                            label=f"eigh {label}"),
+        plain_ms=event_ms(torch, plain, 1, warmup=0),
+        library_ms=event_ms(torch, lambda: torch.linalg.eigh(k), 5),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(dev, spec, nodes, pooled, gamma):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     from repro_torch.core import build_setup, oos, ring
     from repro_torch.core.kernels_math import gram, resolve_gamma
-    from repro_torch.data import kpca_dataset
+    from repro_torch.data import kpca_dataset, node_dataset
     from repro_torch.kernels import (gram_tiles, project_partial_op,
                                      project_partial_reference)
     g = torch.as_tensor(gamma, dtype=torch.float32, device=dev).reshape(())
@@ -913,6 +956,14 @@ def phase_kernels(dev, spec, nodes, pooled, gamma):
                                         f"J{DIST_RANKS}xN{rn}xS3 probe ring"),
                             admm_record(ring_setup, f"J1xN{rn}xS3 probe ring",
                                         nodes=1)]
+    # the eigensolve on the node Grams of a J = 80 fit (fit-j80's size) and
+    # of the J = 20 fit above
+    nodes80, _ = node_dataset(80, 100, m=784, seed=1)
+    records["eigh"] = [
+        eigh_record(build_setup(nodes80, ring(80, hops=2), spec,
+                                center="global", device=dev).k,
+                    "80x100x100 (J80 fit)"),
+        eigh_record(setup.k, "20x100x100 (J20 fit)")]
     emit("kernels", tolerance=TOLERANCE, records=records,
          gram_ring_bits=ring_bits)
     for name, recs in records.items():
@@ -936,10 +987,11 @@ def launch_counters() -> dict:
     """Each kernel's launch count (its wrapper's attribute), and project's
     by kind: its bf16 query slabs (the split pass's bf16 instance), its raw
     partials (the sharded path's partial projector), and the support split
-    of ``prepare_support`` (once per model and shard)."""
+    of ``prepare_support`` (once per model and shard); ``eigh_library``:
+    the eigensolves on the card that took ``torch.linalg.eigh`` by shape."""
     from repro_torch.kernels import (admm_local_update, center_tiles,
-                                     gram_tiles, prepare_support,
-                                     project_tiles)
+                                     eigh_op, gram_tiles, prepare_support,
+                                     project_tiles, sym_eigh)
     return {"gram": (gram_tiles, "launches"),
             "gram_bf16": (gram_tiles, "bf16_launches"),
             "project": (project_tiles, "launches"),
@@ -947,7 +999,9 @@ def launch_counters() -> dict:
             "admm_step": (admm_local_update, "launches"),
             "project_bf16": (project_tiles, "bf16_launches"),
             "project_partial": (project_tiles, "partial_launches"),
-            "project_support": (prepare_support, "launches")}
+            "project_support": (prepare_support, "launches"),
+            "eigh": (sym_eigh, "launches"),
+            "eigh_library": (eigh_op, "library_calls")}
 
 
 def zero_launches() -> None:
@@ -1062,7 +1116,10 @@ def phase_topk(dev, spec, setup, nodes, requests) -> dict:
                                   ("compressed", compressed)), requests,
                             "topk")
     counts = read_launches("topk", ("gram", "project", "center",
-                                    "admm_step"))
+                                    "admm_step", "eigh"))
+    check(counts["eigh"] == 1 and counts["eigh_library"] == 0,
+          f"topk: eigh launches {counts['eigh']} (1, the one deflation), "
+          f"library eigensolves {counts['eigh_library']} (0)")
     emit("topk", k=2, iterations=30, topk_s=t1 - t0,
          first_similarity_mean=first[0], first_similarity_min=first[1],
          alignment_mean=sum(align) / len(align), alignment_min=min(align),
@@ -1753,7 +1810,12 @@ def phase_faults(dev, spec, nodes, full) -> dict:
           f"{len(bad)} failed, versions {stale_v} then {fresh_v}, errors "
           f"{errs}")
     launches = read_launches("faults", ("gram", "admm_step", "project",
-                                        "project_partial"))
+                                        "project_partial", "eigh"))
+    check(launches["eigh"] == 1 + run.n_reknits
+          and launches["eigh_library"] == 0,
+          f"faults: eigh launches {launches['eigh']} ({1 + run.n_reknits}, "
+          f"one a build_setup), library eigensolves "
+          f"{launches['eigh_library']} (0)")
 
     # -- the fit's quality (after the count: the central kPCA and the
     # similarities launch gram and center for the check, not the path) -------
@@ -1941,7 +2003,7 @@ def phase_dkpca(dev, spec, nodes, setup, dense_alpha, alpha_gt) -> dict:
             res = fit(alpha0=alpha0, ledger=ledger)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            launches = read_launches("dkpca", ("gram", "admm_step"))
+            launches = read_launches("dkpca", ("gram", "admm_step", "eigh"))
             local = fit()
             bf16_ledger = CommLedger()
             bf16 = fit(alpha0=alpha0, message_dtype=torch.bfloat16,
@@ -1969,9 +2031,10 @@ def phase_dkpca(dev, spec, nodes, setup, dense_alpha, alpha_gt) -> dict:
                                           f"{SIM30_MIN}")
     check(got_ledger == DKPCA_LEDGER, f"dkpca: ledger {got_ledger}, the JAX "
                                       f"package's {DKPCA_LEDGER}")
-    check(launches["gram"] >= predicted_gram and launches["admm_step"] == 30,
+    check(launches["gram"] >= predicted_gram and launches["admm_step"] == 30
+          and launches["eigh"] == 1 and launches["eigh_library"] == 0,
           f"dkpca: launches {launches}, predicted gram >= "
-          f"{predicted_gram} and admm_step 30")
+          f"{predicted_gram}, admm_step 30, eigh 1 and eigh_library 0")
     check(bool(torch.isfinite(bf16.alpha_hist).all())
           and bf16_ledger.per_iter.bytes == DKPCA_BF16_BYTES,
           f"dkpca bf16: finite {bool(torch.isfinite(bf16.alpha_hist).all())}"
@@ -4574,8 +4637,8 @@ def main(argv=None) -> int:
         sims[it] = mean_similarity(res.alpha_hist[it - 1], x_nodes,
                                    pooled_t, alpha_gt[:, 0], spec,
                                    setup.gamma)
-    # init="local" keys on the node Grams' eigenvector signs: cuSOLVER's
-    # against LAPACK's on the same matrices, and how many nodes' warm starts
+    # init="local" keys on the node Grams' eigenvector signs: the eigh
+    # kernel's against LAPACK's on the same matrices, and how many nodes' warm starts
     # point against the central component under each (on the CPU, so no
     # kernel launch of this diagnostic counts as the main path's).
     k_cpu = setup.k.cpu()
@@ -4625,7 +4688,10 @@ def main(argv=None) -> int:
                                  ("compressed", compressed)), requests,
                            "serve")
     launches = read_launches("fit and serve", ("gram", "project", "center",
-                                               "admm_step"))
+                                               "admm_step", "eigh"))
+    check(launches["eigh"] == 1 and launches["eigh_library"] == 0,
+          f"fit and serve: eigh launches {launches['eigh']} (1, the one "
+          f"build_setup), library eigensolves {launches['eigh_library']} (0)")
     emit("serve", requests=list(sizes), models=serve,
          compress_rel_err=float(rel_err[0]), launches=launches)
 
@@ -4685,12 +4751,16 @@ def main(argv=None) -> int:
             ("admm_step", "src/repro_torch/kernels/csrc/admm_step.cu",
              "src/repro/kernels/admm_step/admm_step.py:50", 0),
             ("center", "src/repro_torch/kernels/csrc/center.cu",
-             "src/repro/kernels/centering/centering.py:29", 0)):
+             "src/repro/kernels/centering/centering.py:29", 0),
+            ("eigh", "src/repro_torch/kernels/csrc/eigh.cu",
+             "none (the JAX package calls jnp.linalg.eigh; on the card it "
+             "takes cuSOLVER's place)", 0)):
         r = records[name][idx]
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
-            launches_by_path={p: c[name] for p, c in path_launches.items()},
+            launches_by_path={p: c.get(name) for p, c in
+                              path_launches.items()},
             max_abs_err=max(x["max_abs_err"] for x in records[name]),
             tolerance=TOL,
             ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],

@@ -13,8 +13,8 @@ rbf with the median bandwidth, hops = 1, so S = 3 slots) this runs each
 operation once on the batch of 4 and once on each node alone, and prints
 one JSON line per operation: bitwise or not, and the largest difference.
 Operations: the sweep's cross-Gram and the slot Grams (the gram kernel),
-the eigendecomposition (``psd_jitter_eigh``, cuSOLVER), the fused eq.
-12-13 update (the admm_step kernel), a batched matrix product of the
+the eigendecomposition (``psd_jitter_eigh``, the eigh kernel), the fused
+eq. 12-13 update (the admm_step kernel), a batched matrix product of the
 solver's kind (cuBLAS), ``_sym_apply``, the centring statistics' row sums
 and node means, the z-update's two einsums and the residual's per-node
 sum; the same four in the form the ring runs them

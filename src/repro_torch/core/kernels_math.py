@@ -107,8 +107,13 @@ def center_gram_global(k_xy: torch.Tensor, k_x_train: torch.Tensor,
 def psd_jitter_eigh(k: torch.Tensor, rel_eps: float = 1e-6):
     """Eigendecomposition of a symmetric PSD Gram matrix (batched over any
     leading dims) with eigenvalue flooring: lam_i <- max(lam_i,
-    rel_eps * lam_max). Returns (lam, v), lam ascending."""
-    lam, v = torch.linalg.eigh(k)
+    rel_eps * lam_max). Returns (lam, v), lam ascending.
+
+    On the card, matrices up to ``kernels.eigh.MAX_N`` go to the Jacobi
+    kernel in one launch; CPU tensors and larger matrices keep
+    ``torch.linalg.eigh`` (``kernels.eigh.ops.eigh_op``)."""
+    from ..kernels.eigh.ops import eigh_op   # kernels import this module
+    lam, v = eigh_op(k)
     lam_max = torch.clamp(lam[..., -1:], min=1e-30)
     lam = torch.maximum(lam, rel_eps * lam_max)
     return lam, v

@@ -59,6 +59,8 @@ SIGNATURES = {
     # g strides (j, n, s), stream
     "kpca_admm_step": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                        _ll, _ll, _ll, _ll, _ll, _ll, _p],
+    # k, lam, vec, sweeps, batch, n, stream
+    "kpca_sym_eigh": [_p, _p, _p, _p, _i, _i, _p],
 }
 
 

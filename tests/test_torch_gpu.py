@@ -14,11 +14,13 @@ import torch
 from repro_torch.core import KernelSpec
 from repro_torch.kernels import (admm_local_update, admm_local_update_op,
                                  admm_local_update_reference, center_op,
-                                 center_reference, center_tiles, gram_op,
-                                 gram_reference, gram_tiles, project_op,
-                                 project_partial_op,
+                                 center_reference, center_tiles, eigh_op,
+                                 gram_op, gram_reference, gram_tiles,
+                                 project_op, project_partial_op,
                                  project_partial_reference, project_reference,
-                                 project_tiles)
+                                 project_tiles, sym_eigh, sym_eigh_reference)
+from repro_torch.kernels.eigh import MAX_N as EIGH_MAX_N
+from repro_torch.kernels.eigh import MAX_SWEEPS
 from repro_torch.kernels.gram.ops import row_norms
 from repro_torch.kernels.project.project import prepare_support, split_tf32
 
@@ -267,9 +269,9 @@ def test_project_wrapper_counts_launches(cuda):
 
 def test_slice_on_card_matches_cpu(cuda):
     """fit -> consensus -> package -> serve on the card against the port's
-    own CPU path, from one shared alpha0 (cuSOLVER and LAPACK may pick
-    other eigenvector signs, and init="local" keys on them); both kernels
-    launch on the way."""
+    own CPU path, from one shared alpha0 (the card's eigensolve and LAPACK
+    may pick other eigenvector signs, and init="local" keys on them); both
+    kernels launch on the way."""
     from repro_torch.core import (build_setup, central_kpca, initial_alpha,
                                   oos, ring, run_admm, similarity)
     from repro_torch.data import kpca_dataset, node_dataset
@@ -369,6 +371,102 @@ def test_build_setup_on_card_matches_cpu(cuda, center):
     torch.testing.assert_close(top_t[:, :, None] * top_t[:, None, :],
                                top_c[:, :, None] * top_c[:, None, :],
                                rtol=0, atol=1e-4)
+
+
+def _centred_node_grams(b, n, seed, dev):
+    """Centred RBF Grams of ``node_dataset``'s nodes on ``dev`` (b, n, n),
+    the bandwidth from the pooled rows: the fit's kind of node Gram."""
+    from repro_torch.core import center_gram, gram, resolve_gamma
+    from repro_torch.data import node_dataset
+    nodes, _ = node_dataset(b, n, m=784, seed=seed)
+    x = torch.as_tensor(nodes, device=dev)
+    spec = KernelSpec()
+    g = resolve_gamma(spec, x.reshape(b * n, -1))
+    return center_gram(gram(spec, x, gamma=g))
+
+
+# eigenvalues and V diag(lam) V^T within 1e-5 of max |lam|, V^T V - I within
+# 1e-5: the CPU tests' gate for the plain version (tests/test_torch_eigh.py)
+EIGH_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,n", [(80, 100), (6, 40), (3, EIGH_MAX_N),
+                                 (2, 1)])
+def test_eigh_kernel_matches_plain_and_library(cuda, b, n):
+    """The Jacobi kernel on centred RBF node Grams (the fit's are 80 x 100 x
+    100) against float64 ``torch.linalg.eigh`` and its plain version on the
+    same CUDA tensor: ascending eigenvalues, V diag(lam) V^T and V^T V; the
+    top eigenvector's projector (its eigenvalue stands far from the next)
+    against both at 1e-4, as the setup test holds it; the sweeps under the
+    cap and within one of the plain version's (fused roundings may move the
+    last rotation across the threshold); one launch a call."""
+    k = _centred_node_grams(b, n, 11 + n, cuda)
+    before = sym_eigh.launches
+    lam, vec, sweeps = sym_eigh(k)
+    assert sym_eigh.launches == before + 1
+    plam, pvec, psweeps = sym_eigh_reference(k)
+    want, wvec = torch.linalg.eigh(k.double())
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    assert lam.shape == (b, n) and vec.shape == (b, n, n)
+    assert bool((lam[:, 1:] >= lam[:, :-1]).all())
+    for got in (lam, plam):
+        assert float(((got.double() - want) / scale).abs().max()) <= EIGH_TOL
+    v = vec.double()
+    rec = v @ torch.diag_embed(lam.double()) @ v.transpose(1, 2)
+    assert float(((rec - k.double()) / scale[..., None]).abs().max()) \
+        <= EIGH_TOL
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert float((v.transpose(1, 2) @ v - eye).abs().max()) <= EIGH_TOL
+    top = vec[..., -1]
+    for other in (pvec[..., -1], wvec[..., -1].float()):
+        torch.testing.assert_close(top[:, :, None] * top[:, None, :],
+                                   other[:, :, None] * other[:, None, :],
+                                   rtol=0, atol=1e-4)
+    assert bool((sweeps >= 1).all()) and bool((sweeps < MAX_SWEEPS).all())
+    assert int((sweeps - psweeps).abs().max()) <= 1
+
+
+def test_eigh_kernel_marks_non_finite_input(cuda):
+    """A matrix holding NaN or inf comes out NaN with 0 sweeps; the batch's
+    other matrices are bitwise what they are alone (one block a matrix)."""
+    k = _centred_node_grams(3, 40, 9, cuda)
+    k[0, 4, 1] = float("nan")
+    k[2, 3, 3] = float("inf")
+    lam, vec, sweeps = sym_eigh(k)
+    alone = sym_eigh(k[1:2].contiguous())
+    torch.cuda.synchronize()
+    for i in (0, 2):
+        assert bool(lam[i].isnan().all()) and bool(vec[i].isnan().all())
+    assert sweeps.tolist()[0] == 0 and sweeps.tolist()[2] == 0
+    assert torch.equal(lam[1:2], alone[0]) and torch.equal(vec[1:2], alone[1])
+
+
+def test_eigh_route_by_size(cuda):
+    """Past MAX_N the kernel's wrapper raises, and psd_jitter_eigh takes
+    cuSOLVER there (counted in ``eigh_op.library_calls``, no launch); at
+    MAX_N, and on an unbatched or doubly batched Gram, it launches once."""
+    from repro_torch.core import psd_jitter_eigh
+    k = _centred_node_grams(2, EIGH_MAX_N + 1, 5, cuda)
+    with pytest.raises(ValueError, match=f"n <= {EIGH_MAX_N}"):
+        sym_eigh(k)
+    launches, library = sym_eigh.launches, eigh_op.library_calls
+    lam, vec = psd_jitter_eigh(k)
+    assert (sym_eigh.launches, eigh_op.library_calls) == (launches,
+                                                          library + 1)
+    # cuSOLVER's own result, floored (it reads 4.7e-5 of max |lam| from
+    # float64 here, the kernel 2e-6)
+    want, _ = torch.linalg.eigh(k)
+    want = torch.maximum(want, 1e-6 * want[:, -1:])
+    torch.testing.assert_close(lam, want, rtol=0,
+                               atol=1e-6 * float(want.max()))
+    small = k[:, :EIGH_MAX_N, :EIGH_MAX_N]
+    for case in (small, small[0], small[None]):
+        launches = sym_eigh.launches
+        lam, vec = psd_jitter_eigh(case)
+        assert sym_eigh.launches == launches + 1
+        assert lam.shape == case.shape[:-1] and vec.shape == case.shape
+    assert eigh_op.library_calls == library + 1
 
 
 def _strided_blocks(dev):
