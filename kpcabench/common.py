@@ -28,13 +28,19 @@ def benchmark() -> dict:
 
 def with_staged(bench: dict) -> dict:
     """``BENCHMARK.json`` and the entries of ``staged.json`` (cells that
-    run and prove correct but hold no bound yet) that it lacks."""
+    run and prove correct but hold no bound yet) that it lacks; a staged
+    metric that ``BENCHMARK.json`` has adds its ``workloads`` (the staged
+    cells that report it) to that entry's."""
     staged = load_json(HERE / "staged.json")
     out = dict(bench)
     for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        extra = {e["name"]: e.get("workloads", []) for e in staged[key]}
         have = {e["name"] for e in bench[key]}
-        out[key] = bench[key] + [e for e in staged[key]
-                                 if e["name"] not in have]
+        out[key] = [dict(e, workloads=e["workloads"] + [
+            w for w in extra[e["name"]] if w not in e["workloads"]])
+            if e["name"] in extra and "workloads" in e else e
+            for e in bench[key]] + [e for e in staged[key]
+                                    if e["name"] not in have]
     return out
 
 

@@ -5,11 +5,12 @@ the step a faster path would be tempted to take), judged by the very
 numbers a run compares. It has to come out as not correct.
 
     python3 kpcabench/control.py --workload <cell> --seeds 1,2,3 [--count k]
-        [--dry-run]
+        [--fault <name>] [--dry-run]
 
 prints, per seed, the control's worst numbers over ``count`` fits or
-requests of the cell's own inputs and sizes, and the cell's limits. Runs
-of the benchmark do not run it.
+requests of the cell's own inputs and sizes (a runner with a ``control``
+of its own, as ``runners/train.py``, gives its cells' readings), and the
+cell's limits. Runs of the benchmark do not run it.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch  # noqa: E402
 
 from kpcabench import checks, data, reference  # noqa: E402
 from kpcabench.common import load_cell  # noqa: E402
+from kpcabench.runners import kind  # noqa: E402
 
 
 def fit_readings(cell, seed: int, count: int, device) -> dict:
@@ -63,7 +65,12 @@ def score_readings(cell, seed: int, count: int, device) -> dict:
     return checks.worst(readings)
 
 
-def readings(cell, seed: int, count: int, device) -> dict:
+def readings(cell, seed: int, count: int, device, fault: str = "") -> dict:
+    runner = kind(cell.traffic["kind"])
+    if hasattr(runner, "control"):
+        return runner.control(cell, seed, count, device, fault)
+    if fault:
+        raise SystemExit(f"kpcabench: no fault {fault!r} for this cell")
     if cell.traffic["kind"] in ("fit", "ring_fit"):
         return fit_readings(cell, seed, count, device)
     return score_readings(cell, seed, count, device)
@@ -75,6 +82,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--count", type=int, default=8)
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--fault", default="",
+                    help="a fault planted in the reference put in the "
+                         "program's place instead of the control (a "
+                         "runner's own, e.g. half_batch for training)")
     args = ap.parse_args(argv)
     cell = load_cell(args.workload)
     device = "cpu"
@@ -86,9 +97,9 @@ def main(argv=None) -> int:
     else:
         device = "cuda"
     for seed in (int(s) for s in args.seeds.split(",")):
-        got = readings(cell, seed, args.count, device)
+        got = readings(cell, seed, args.count, device, args.fault)
         print(json.dumps(dict(workload=args.workload, seed=seed,
-                              control=got, limits=cell.spec["limits"],
+                              fault=args.fault, control=got, limits=cell.spec["limits"],
                               fails={k: v > cell.spec["limits"][k]
                                      for k, v in got.items()})), flush=True)
     return 0

@@ -1,7 +1,7 @@
 """The fused ADMM update's share of its roofline: the least time one fit's
 calls could take (``work.admm_step.fit``, bound by the bytes of V and K
 read once a call) over the device seconds of ``admm_step_kernel`` per
-traced fit. Moves fit_s."""
+traced fit. Moves fit_device_s."""
 
 from kpcabench import tracing
 from kpcabench.metrics import fits

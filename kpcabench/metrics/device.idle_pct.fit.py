@@ -1,5 +1,5 @@
 """Share of the traced fits' window in which no device operation ran.
-Moves fit_s."""
+Moves fit_device_s."""
 
 from kpcabench.metrics import idle_pct
 

@@ -1,6 +1,6 @@
 """Milliseconds a fit spends in ``core.admm.build_setup`` (the node Grams,
 global centring, the batched eigensolve), synchronised, mean per fit of
-the traced window; host clock. Moves fit_s."""
+the traced window; host clock. Moves fit_device_s."""
 
 from kpcabench.metrics import span
 

@@ -1,6 +1,6 @@
 """Milliseconds a fit spends in ``core.admm.run_admm`` (the iterations,
 each with its fused ``admm_step`` launch), synchronised, mean per fit of
-the traced window; host clock. Moves fit_s."""
+the traced window; host clock. Moves fit_device_s."""
 
 from kpcabench.metrics import span
 

@@ -30,6 +30,13 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
+# One process with one thread of host compute: the cells' loops are
+# bound by the host's launches, and pool threads of OpenMP and BLAS would
+# only compete with that loop for the machine's cores. Set before numpy
+# and torch are imported, so that their pools are made at this size.
+for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ[_var] = "1"
+
 ROOT = Path(__file__).resolve().parents[1]
 for p in (ROOT / "src", ROOT):
     if str(p) not in sys.path:

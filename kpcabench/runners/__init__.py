@@ -1,11 +1,19 @@
 """The runners: one general generator per kind of traffic, chosen by the
-mix's ``kind`` (``fit``, ``ring_fit``, ``serve``). Each runs a cell from
-its files, times it, and returns an ``Outcome``."""
+mix's ``kind`` and found by file: ``runners/<kind>.py`` (``fit``,
+``ring_fit``, ``serve``, ``train``, and whatever a later file adds). Each
+runs a cell from its files, times it, and returns an ``Outcome``; one that
+has a ``control(cell, seed, count, device)`` gives its cells' control
+readings to ``kpcabench/control.py``."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from pathlib import Path
 from typing import Optional
+
+HERE = Path(__file__).resolve().parent
+KIND = re.compile(r"^[A-Za-z0-9][A-Za-z0-9_]{0,63}$")
 
 
 @dataclasses.dataclass
@@ -25,9 +33,10 @@ class Outcome:
 
 
 def kind(name: str):
-    """The runner module of a traffic kind."""
+    """The runner module of a traffic kind: ``runners/<name>.py``, where
+    that file exists and its name is a module name."""
     import importlib
-    if name not in ("fit", "ring_fit", "serve"):
+    if not KIND.match(str(name)) or not (HERE / f"{name}.py").is_file():
         raise SystemExit(f"kpcabench: no runner for traffic kind {name!r}")
     return importlib.import_module(f"kpcabench.runners.{name}")
 

@@ -11,6 +11,14 @@ over at its first dataset and counts those fits in ``reused``), and
 starts from an ``alpha0`` the benchmark draws (eigenvector signs are the eigensolver's own, so the
 program's default warm start would differ between libraries).
 
+The fit is bound by the host's launches, and the host's speed changes by
+half again for seconds at a time, so the wall time a fit takes swings
+between runs by more than any bound holds. An untraced run therefore
+traces its window for device activity alone and reports the device's
+busy seconds a fit (``fit_device_s``); a traced run first times an
+untraced window of the same length for the wall seconds a fit (the
+per-layer ``fit.wall_s``), then traces ``trace_fits`` fits in full.
+
 The traffic mix's keys: ``pool`` (datasets drawn at set-up; the first is
 the warm-up fit's), ``data`` overrides of the configuration's generator
 settings. The cell's: ``sample`` (fits compared with the reference),
@@ -24,7 +32,7 @@ import time
 
 import torch
 
-from .. import checks, data, reference
+from .. import checks, data, raw_trace, reference
 from ..common import sample
 from ..tracing import profiled, span
 from . import Outcome
@@ -95,6 +103,21 @@ def fresh(n: int, pool: int) -> int:
     return 1 + n % (pool - 1)
 
 
+def window(fit, pool, a0, outputs: dict, seconds: float, sync):
+    """Back-to-back fits, each synchronised, until ``seconds`` have passed
+    at the end of one. Returns (fits, seconds)."""
+    n = 0
+    t0 = time.perf_counter()
+    while True:
+        i = fresh(n, pool.shape[0])
+        outputs[i] = fit(pool[i], a0[i], no_phase)
+        sync()
+        n += 1
+        elapsed = time.perf_counter() - t0
+        if elapsed >= seconds:
+            return n, elapsed
+
+
 def compare(cfg, pool, a0, outputs: dict, picks) -> dict:
     """The worst of each number over the picked fits, each against the
     reference worked out from the fit's own dataset and alpha0."""
@@ -109,6 +132,7 @@ def compare(cfg, pool, a0, outputs: dict, picks) -> dict:
 def run(cell, seed: int, seconds: float, trace: bool, device) -> Outcome:
     cfg, traffic, spec = cell.config, cell.traffic, cell.spec
     sync = sync_of(device)
+    on_card = torch.device(device).type == "cuda"
     t_start = time.perf_counter()
     fit = program(cfg)
     pool, a0 = make_inputs(cfg, traffic, seed, device)
@@ -122,45 +146,45 @@ def run(cell, seed: int, seconds: float, trace: bool, device) -> Outcome:
                   warm_fit_s=setup_end - t_inputs)
     outputs = {}
     digest = None
+    end_to_end, counters = {}, {}
     if trace:
+        fits, elapsed = window(fit, pool, a0, outputs, seconds, sync)
+        counters["fit_wall_s"] = elapsed / fits
         phase = synced(sync)
 
-        def window():
+        def traced():
             for i in range(1, 1 + spec["trace_fits"]):
                 outputs[i] = fit(pool[i], a0[i], phase)
-        _, digest = profiled(window, sync)
-        elapsed = digest["window_s"]
+        _, digest = profiled(traced, sync)
+        fits += spec["trace_fits"]
+    elif on_card:
+        # The tracer starts after set-up's clock has stopped and before the
+        # window's starts: it is the benchmark's, not the program's.
+        (fits, elapsed), busy = raw_trace.device_seconds(
+            lambda: window(fit, pool, a0, outputs, seconds, sync), sync)
+        end_to_end["fit_device_s"] = busy / fits
+        counters["fit_wall_s"] = elapsed / fits
     else:
-        n = 0
-        t0 = time.perf_counter()
-        while True:
-            i = fresh(n, pool.shape[0])
-            outputs[i] = fit(pool[i], a0[i], no_phase)
-            sync()
-            n += 1
-            elapsed = time.perf_counter() - t0
-            if elapsed >= seconds:
-                break
-    fits = n if not trace else len(outputs)
-    peak = torch.cuda.max_memory_allocated() \
-        if torch.device(device).type == "cuda" else 0
+        fits, elapsed = window(fit, pool, a0, outputs, seconds, sync)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
     picks = [sorted(outputs)[k]
              for k in sample(len(outputs), spec["sample"], seed, 1)]
     keep = {i: (pool[i].clone(), a0[i].clone()) for i in picks}
     del pool, a0
-    if torch.device(device).type == "cuda":
+    if on_card:
         torch.cuda.empty_cache()
     found = compare(cfg, {i: v[0] for i, v in keep.items()},
                     {i: v[1] for i, v in keep.items()}, outputs, picks)
     return Outcome(
-        setup_end=setup_end,
-        end_to_end=dict(fit_s=elapsed / fits),
+        setup_end=setup_end, end_to_end=end_to_end,
         attempted=fits, failed=0, checks=found, memory_peak_bytes=peak,
-        counters=dict(fits=fits, reused=max(0, fits - (pool_size - 1)),
+        counters=dict(counters, fits=fits,
+                      reused=max(0, fits - (pool_size - 1)),
                       setup_stages=stages),
         digest=digest,
         busy_s=digest["busy_s"] if digest else None,
         window_s=digest["window_s"] if digest else None)
 
 
-__all__ = ["compare", "make_inputs", "program", "run", "sync_of", "synced"]
+__all__ = ["compare", "make_inputs", "program", "run", "sync_of", "synced",
+           "window"]

@@ -22,7 +22,7 @@ def result(capsys, workload, seconds=1.0):
 
 
 @pytest.mark.parametrize("workload", ["fit-j80", "serve-j80-bulk",
-                                      "serve-j20-bulk"])
+                                      "serve-j20-bulk", "fit-j20"])
 def test_sound_runs_are_correct(capsys, workload):
     out = result(capsys, workload)
     assert out["correct"] is True and out["dry_run"] is True

@@ -7,6 +7,7 @@ from pathlib import Path
 import pytest
 
 from kpcabench import common
+from kpcabench.runners import kind
 
 ROOT = common.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -66,15 +67,61 @@ def test_paths_and_files():
         assert PATH.match(rel), rel
 
 
+# the kinds whose cells run the paper's kPCA deployments
+KPCA_KINDS = ("fit", "ring_fit", "serve")
+# keys that name a width: never cut
+WIDTHS = {"d_model", "d_ff", "d_inner", "ssm_state", "head_dim",
+          "ssm_head_dim", "d_ff_expert", "d_ff_dense", "top_k", "features"}
+
+
+def config_rules(c: dict, cfg: dict, kinds: set) -> None:
+    """The rules every configuration file keeps (``c`` its entry, ``cfg``
+    the file, ``kinds`` the traffic kinds of the cells that use it)."""
+    assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+    assert cfg.get("deployment") and cfg.get("assumed")
+    for k in c["reduced"]:
+        assert k in cfg and k in cfg.get("published", {}), k
+        assert k not in WIDTHS and not k.endswith(("_dim", "_rank")), k
+    if kinds & set(KPCA_KINDS):
+        # the paper's deployments, at the paper's sizes
+        assert c["reduced"] == []
+        assert cfg["features"] == 784 and cfg["samples_per_node"] == 100
+        assert cfg["iterations"] == 30 and cfg["hops"] == 2
+    if "arch" in cfg:
+        lm_rules(c, cfg)
+
+
+def lm_rules(c: dict, cfg: dict) -> None:
+    """An LM configuration names a config of the port's registry, every
+    width it repeats is the port's (with its overrides, which hold every
+    cut), and its dry-run sizes are the port's smoke config's."""
+    import dataclasses
+    from repro_torch.configs import ARCH_NAMES, get_config
+    assert cfg["arch"] in ARCH_NAMES
+    assert set(c["reduced"]) <= set(cfg["overrides"])
+    assert all(cfg["published"][k] != cfg[k] for k in c["reduced"])
+    port = dataclasses.replace(get_config(cfg["arch"]), **cfg["overrides"])
+    fields = {f.name for f in dataclasses.fields(port)} - {"name"}
+    repeated = fields & set(cfg)
+    assert {"n_layers", "d_model", "vocab", "family"} <= repeated
+    for k in repeated:
+        assert cfg[k] == getattr(port, k), k
+    if cfg.get("dry_run", {}).get("smoke"):
+        smoke = dataclasses.replace(get_config(cfg["arch"], smoke=True),
+                                    **cfg["overrides"])
+        dry = {**cfg, **cfg["dry_run"]}
+        for k in repeated:
+            assert dry[k] == getattr(smoke, k), k
+
+
 def test_configs_are_used_and_uncut():
     used = {w["config"] for w in BENCH["workloads"]}
     assert {c["name"] for c in BENCH["configs"]} == used
     for c in BOTH["configs"]:
-        assert c["reduced"] == []
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert cfg["features"] == 784 and cfg["samples_per_node"] == 100
-        assert cfg["iterations"] == 30 and cfg["hops"] == 2
+        kinds = {common.load_cell(w["name"]).traffic["kind"]
+                 for w in BOTH["workloads"] if w["config"] == c["name"]}
+        config_rules(c, cfg, kinds)
 
 
 def test_end_to_end_rules():
@@ -90,7 +137,8 @@ def test_end_to_end_rules():
 def test_cell_files_and_metrics(w):
     assert w["chips"] in (1, 4)
     cell = common.load_cell(w["name"], BENCH)
-    assert cell.traffic["kind"] in ("fit", "ring_fit", "serve")
+    runner = ROOT / "kpcabench" / "runners" / f"{cell.traffic['kind']}.py"
+    assert runner.is_file() and callable(kind(cell.traffic["kind"]).run)
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer
@@ -99,6 +147,14 @@ def test_cell_files_and_metrics(w):
         assert callable(common.reader(m["name"]))
     assert set(cell.spec["limits"]) and all(
         v > 0 for v in cell.spec["limits"].values())
+
+
+def test_runners_are_found_by_file():
+    for name in ("fit", "ring_fit", "serve", "train"):
+        assert kind(name).__name__ == f"kpcabench.runners.{name}"
+    for name in ("nothing", "__init__", "../run", "fit.py", ""):
+        with pytest.raises(SystemExit):
+            kind(name)
 
 
 def test_per_layer_rules():

@@ -7,11 +7,12 @@ import sys
 
 import pytest
 
-from kpcabench.common import ROOT
+from kpcabench.common import ROOT, load_cell
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("workload", ["fit-j80", "serve-j20-bulk"])
+@pytest.mark.parametrize("workload", ["fit-j80", "serve-j20-bulk", "fit-j20",
+                                      "train-zamba2-1.2b"])
 def test_short_run_on_the_card(workload):
     import torch
     if not torch.cuda.is_available():
@@ -26,6 +27,8 @@ def test_short_run_on_the_card(workload):
     assert line["device"]["platform"] == "gpu"
     assert line["correct"] is True
     assert "setup_s" in line["metrics"]
+    for m in load_cell(workload).end_to_end:
+        assert line["metrics"][m["name"]]["value"] > 0, m["name"]
 
 
 def test_no_result_without_a_card():

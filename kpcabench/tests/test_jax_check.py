@@ -21,7 +21,9 @@ def test_the_harness_and_the_port_load_no_jax():
     code = ("import sys; sys.path[:0] = ['src', '.'];"
             "import kpcabench.run, kpcabench.control, kpcabench.tracing;"
             "import kpcabench.runners.fit, kpcabench.runners.serve;"
-            "import kpcabench.runners.ring_fit;"
+            "import kpcabench.runners.ring_fit, kpcabench.runners.train;"
+            "import kpcabench.lm_checks, kpcabench.lm_reference.hybrid;"
+            "import repro_torch.models, repro_torch.train;"
             "import repro_torch.core, repro_torch.serve, repro_torch.launch;"
             "from kpcabench.common import forbidden_modules;"
             "print(forbidden_modules())")

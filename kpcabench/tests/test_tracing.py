@@ -77,6 +77,8 @@ def test_fit_readers():
     ops, nbytes = admm_step.fit(c.config)
     assert read("admm_step_roofline") == pytest.approx(
         100 * nbytes / 3.35e12 / 100e-6)
+    assert read("fit.wall_s") is None        # no untraced window ran
+    assert common.reader("fit.wall_s")(ctx(d, fit_wall_s=0.04)) == 0.04
 
 
 def test_serve_readers():
@@ -109,3 +111,82 @@ BOTH = common.with_staged(common.benchmark())
 def test_readers_read_nothing_without_a_trace(metric):
     assert common.reader(metric["name"])(
         ctx(None, metric["workloads"][0])) is None
+
+
+def test_train_readers():
+    """Two traced steps (0-400 and 400-1000 us) and a probe (800-950) in
+    them: the steps' and the probe's host time, the steps' device calls,
+    the idle share and the step's share of the bf16 peak."""
+    from kpcabench.work import lm_hybrid
+    events = [
+        ev("kpcabench.window", 0, 1000, user=True),
+        ev("kpcabench.train.step", 0, 400, user=True),
+        ev("kpcabench.train.step", 400, 800, user=True),
+        ev("kpcabench.probe", 800, 950, user=True),
+        ev("gemm", 100, 300, CUDA),
+        ev("gemm", 500, 700, CUDA),
+        ev("elementwise", 710, 720, CUDA),
+        ev("gram_mma_kernel", 850, 900, CUDA),
+    ]
+    c = ctx(tracing.digest(events), "train-zamba2-1.2b")
+    read = lambda m: common.reader(m)(c)   # noqa: E731
+    assert read("train.step_ms") == pytest.approx(0.4)
+    assert read("probe.ms") == pytest.approx(0.15)
+    assert read("train.calls_per_step") == pytest.approx(1.5)
+    assert read("device.idle_pct.train") == pytest.approx(54.0)
+    ops = 2 * lm_hybrid.step_ops(c.config, c.traffic["batch"],
+                                 c.traffic["seq"])
+    assert read("mfu.train") == pytest.approx(100 * ops / (1e-3 * 989e12))
+
+
+def profile_both_ways(device):
+    """One small profiled window (two spans of products and a host loop
+    between them) digested from ``prof.events()`` and from the raw
+    results: (tracing's digest, raw_trace's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from kpcabench import raw_trace
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    x = torch.randn(256, 256, device=device)
+    with profile(activities=acts) as prof:
+        with record_function(tracing.WINDOW):
+            for name in ("train.step", "probe"):
+                with tracing.span(name):
+                    for _ in range(4):
+                        x = torch.tanh(x @ x)
+                    float(x.sum())
+    return (tracing.digest(prof.events()),
+            raw_trace.digest(prof.profiler.kineto_results))
+
+
+def same(a, b) -> bool:
+    """Equal digests: the same keys and names, numbers to 1e-9."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return b == pytest.approx(a, rel=1e-9, abs=1e-12)
+    return a == b
+
+
+def test_raw_results_digest_as_the_events_do():
+    """The training cell's reader of the raw results and the fit cells'
+    reader of ``prof.events()`` give one digest of one trace."""
+    by_events, by_raw = profile_both_ways("cpu")
+    assert by_events["spans"].keys() == {"train.step", "probe"}
+    assert by_events["gaps"] and same(by_raw, by_events)
+
+
+@pytest.mark.gpu
+def test_raw_results_digest_as_the_events_do_on_the_card():
+    """The same with the card's kernels in the trace."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the profiler traces the card)")
+    by_events, by_raw = profile_both_ways("cuda")
+    assert by_events["busy_s"] > 0 and by_events["ops"]
+    assert same(by_raw, by_events)

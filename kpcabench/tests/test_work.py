@@ -2,8 +2,8 @@
 
 import pytest
 
-from kpcabench.work import PEAKS, admm_step, bound_s, fit, gram, project, \
-    share_pct
+from kpcabench.work import PEAKS, admm_step, bound_s, fit, gram, lm_hybrid, \
+    project, share_pct
 
 J80 = dict(nodes=80, samples_per_node=100, features=784, hops=2,
            iterations=30)
@@ -12,6 +12,7 @@ J80 = dict(nodes=80, samples_per_node=100, features=784, hops=2,
 def test_peaks():
     assert PEAKS["tf32_flops_per_s"] == 495e12
     assert PEAKS["hbm_bytes_per_s"] == 3.35e12
+    assert PEAKS["bf16_flops_per_s"] == 989e12
 
 
 def test_gram_block():
@@ -53,3 +54,21 @@ def test_fit_ops_include_the_gram_and_the_iterations():
 def test_share():
     assert share_pct(495e12, 0, 2.0) == pytest.approx(50.0)
     assert share_pct(1.0, 1.0, 0.0) is None
+
+
+ZAMBA2 = dict(d_model=2048, d_inner=4096, ssm_state=64, ssm_head_dim=64,
+              n_heads=32, n_kv_heads=32, head_dim=64, d_ff=8192, n_layers=38,
+              attn_every=6, d_conv=4, vocab=32000)
+
+
+def test_hybrid_step_ops():
+    mamba = (2 * 2048 * (2 * 4096 + 2 * 64 + 64) + 2 * 4096 * 2048
+             + 2 * 4 * (4096 + 128) + 4 * 4096 * 64)
+    shared = 2 * 2048 * 64 * 128 + 4 * 32 * 64 * 2049 / 2 + 6 * 2048 * 8192
+    per_token = 38 * mamba + 6 * shared + 2 * 2048 * 32000
+    assert lm_hybrid.forward_per_token(ZAMBA2, 2048) == pytest.approx(
+        per_token)
+    assert lm_hybrid.step_ops(ZAMBA2, 4, 2048) == pytest.approx(
+        3 * 8192 * per_token)
+    # about 6 x the 1.2e9 weights a token, with attention's share
+    assert 7e9 < 3 * per_token < 1e10

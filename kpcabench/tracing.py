@@ -81,6 +81,13 @@ def digest(events) -> dict:
                 and not getattr(e, "is_user_annotation", False) \
                 and not e.name.startswith(PREFIX):
             device.append((r.start, r.end, e.name))
+    return digest_of(window, spans, host, device)
+
+
+def digest_of(window, spans, host, device) -> dict:
+    """The digest of a traced window's (start, end) and its benchmark
+    spans, host operations and device operations, each (start, end,
+    name), in microseconds."""
     if window is None:
         raise RuntimeError("the traced window's range is not in the trace")
     w0, w1 = window
@@ -171,5 +178,5 @@ def breakdown(dig: dict) -> dict:
                 idle_gaps=[list(g) for g in dig["gaps"]])
 
 
-__all__ = ["WINDOW", "breakdown", "digest", "op_names",
+__all__ = ["WINDOW", "breakdown", "digest", "digest_of", "op_names",
            "op_seconds", "profiled", "span"]
